@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero before the result):
 
-1. build every CUDA kernel of the path from ``lattigo_tpu_torch/csrc``
+1. build every CUDA kernel of the paths from ``lattigo_tpu_torch/csrc``
    (one ``nvcc`` per source, started together);
-2. hold each kernel bit for bit against its plain torch version on the card
-   at the slice's shapes (4 polynomials x 15 limbs x 16384), lazy and not,
-   through a non-zero limb offset too, and NTT then INTT as the identity;
-   time kernel and plain version with CUDA events;
+2. hold each kernel bit for bit against its plain torch version on the card,
+   lazy and not, through a non-zero limb offset too, and NTT then INTT as
+   the identity; time kernel and plain version with CUDA events:
+   the four-step kernel (``ntt_mxu.cu``) at 4 polynomials x 15 limbs x
+   16384 on the BGV chain; the u32 kernel (``ntt_pallas.cu``) at the blind
+   rotation's own shape, 2 x 1 x 1024, and at 4 x 15 x 16384 on 15
+   alternating 29-bit primes;
 3. serve one batch of 4 requests on BGV ``bgv_tpu_params(14, 438)``
    (N = 16384, 13 + 2 primes < 2^29, T = 65537): encode + encrypt,
    ``rescale(mul_relin(a, b))``, decrypt + decode, every slot checked
@@ -18,7 +21,15 @@ Phases (one line each; any failure exits non-zero before the result):
    before and read just after, and every distinct kernel call of that run
    is held against the plain version on its own input; then the step is
    timed after a warm-up and profiled once;
-4. the card's name and power limit as nvidia-smi gives them, the
+4. LMKCDEY blind rotation at Lattigo's blind-rotation parameters (BR ring
+   logN 10, Q = 0x7fff801, P = 536881153; LWE ring logN 9, Q = 0x3001):
+   key generation (512 RGSW keys, 11 Galois keys), then one LWE ciphertext
+   of 16 values x = -1 + 2i/16 blind-rotated through the sign test
+   polynomial slot by slot, decrypted, every slot with x != 0 checked
+   against sign(x); launch counts zeroed before and read after, every
+   distinct u32 kernel call held against the plain version; one LUT
+   profiled;
+5. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -40,6 +51,14 @@ LOG_N, LOG_QP = 14, 438
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 op/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# int32 ALU peak: 132 SMs x 64 int32 lanes x 1.98 GHz boost (the clock of
+# the data sheet's 67 TFLOP/s fp32 = 132 x 128 lanes x 2 x 1.98 GHz)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer operations per u32 butterfly: two folds (compare + select
+# each), four multiplies of the Montgomery product, its subtract-add, and
+# the butterfly's add and subtract
+U32_OPS_PER_BUTTERFLY = 12
+BR_SLOTS = 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -65,11 +84,12 @@ def cuda_ms(fn, reps: int) -> float:
 def phase_build():
     from lattigo_tpu_torch import build
     t0 = time.perf_counter()
-    logs = build.build(["ntt_mxu"])
+    logs = build.build(["ntt_mxu", "ntt_pallas"])
     secs = time.perf_counter() - t0
     regs = sorted({ln.split("Used ")[1].split(",")[0] for log in logs.values()
                    for ln in log.splitlines() if "Used " in ln})
-    print(f"phase 1 build: ntt_mxu.cu in {secs:.2f} s (ptxas: {'; '.join(regs)})")
+    print(f"phase 1 build: ntt_mxu.cu and ntt_pallas.cu in {secs:.2f} s "
+          f"(ptxas: {'; '.join(regs)})")
 
 
 def four_step_bound(eng, shape) -> tuple[float, str]:
@@ -133,7 +153,7 @@ def phase_kernels():
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     y = ring.ntt(x)
     check(torch.equal(ring.intt(y), x), "NTT then INTT is not the identity")
-    print("phase 2 kernels: bit-equal to the plain version (lazy, not lazy, "
+    print("phase 2 ntt_mxu: bit-equal to the plain version (lazy, not lazy, "
           "limb offset 5), NTT->INTT identity; at "
           f"{BATCH}x{len(q + p)}x{ring.n}: " + ", ".join(
               f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
@@ -194,7 +214,8 @@ def phase_server(rows):
     finally:
         ntt_mxu.four_step_cuda = launch
     check(np.array_equal(got, a * b % params.t), "decoded slots != a*b mod t")
-    for r in rows:
+    mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
+    for r in mxu_rows:
         inverse = r["name"].endswith("inverse")
         r["launches"] = launches["inverse" if inverse else "forward"]
         check(r["launches"] > 0, f"{r['name']} not launched on the main path")
@@ -202,7 +223,7 @@ def phase_server(rows):
     for eng, x, limb_lo, inverse, lazy in calls.values():
         k = launch(eng, x, limb_lo, inverse, lazy)
         want = ntt_mxu.four_step_plain(eng, x, limb_lo, inverse, lazy)
-        for r in rows:
+        for r in mxu_rows:
             if r["name"].endswith("inverse") == inverse:
                 r["max_abs_err"] = max(r["max_abs_err"], int((k - want).abs().max()))
         check(torch.equal(k, want), f"kernel != plain at main-path call "
@@ -244,32 +265,240 @@ def phase_server(rows):
     print("phase 3 profile: " + profile_step(step))
 
 
-def profile_step(step) -> str:
+def profile_step(step, kernel: str = "ntt_mxu_kernel", host: bool = True) -> str:
     """Device time of one step by kernel family, and the device's idle share
-    of the step's wall time."""
+    of the step's wall time; ``kernel`` names the family whose share is
+    reported. ``host=False`` records device activity only (for steps of
+    hundreds of thousands of host ops, whose trace would take minutes to
+    sum)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if host else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev, launches = {}, 0
+    dev, counts = {}, {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
             dev[ev.key] = ev.self_device_time_total
-            launches += ev.count
+            counts[ev.key] = ev.count
     total = sum(dev.values())
     if total == 0:
         return "not measured (no device time in the trace)"
-    ntt = sum(v for k, v in dev.items() if "ntt_mxu_kernel" in k)
+    ntt = sum(v for k, v in dev.items() if kernel in k)
+    ntt_n = sum(v for k, v in counts.items() if kernel in k)
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:3]
-    return (f"wall {wall_us:.0f} us, {launches} device kernels busy {total:.0f} us "
-            f"(idle share {max(0.0, 1 - total / wall_us):.3f}), ntt_mxu kernels "
-            f"{ntt:.0f} us ({ntt / total:.3f} of device time); top: " + "; ".join(
+    return (f"wall {wall_us:.0f} us, {sum(counts.values())} device kernels busy "
+            f"{total:.0f} us (idle share {max(0.0, 1 - total / wall_us):.3f}), "
+            f"{kernel}s {ntt:.0f} us in {ntt_n} launches ({ntt / total:.3f} of "
+            f"device time); top: " + "; ".join(
                 f"{k[:50]} {v:.0f} us" for k, v in top))
+
+
+def u32_bound(eng, shape) -> tuple[float, str]:
+    """Least time for one u32 call on x int64[shape]: 16 bytes a
+    coefficient (int64 in and out) plus the used limbs' root table and
+    constants, against logN·N/2 butterflies a row on the int32 ALUs."""
+    rows = 1
+    for d in shape[:-1]:
+        rows *= d
+    limbs, n = shape[-2], eng.n
+    nbytes = 16 * rows * n + limbs * (4 * n + 16)
+    ops = rows * eng.logn * (n // 2) * U32_OPS_PER_BUTTERFLY
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def br_params(device="cuda"):
+    """Lattigo's blind-rotation parameters (core/rgsw/blindrot tests and
+    BenchmarkHEBin): BR ring logN 10, Q = 0x7fff801, with the RNS gadget's
+    P = 536881153 (the first 29-bit draw of gen_moduli(10, 2048)); LWE ring
+    logN 9, Q = 0x3001, no P."""
+    from lattigo_tpu_torch import rlwe
+    pbr = rlwe.Parameters(rlwe.ParametersLiteral(
+        log_n=10, q=(0x7FFF801,), p=(536881153,)), device=device)
+    plwe = rlwe.Parameters(rlwe.ParametersLiteral(log_n=9, q=(0x3001,)),
+                           device=device)
+    return pbr, plwe
+
+
+def check_u32(ring, x, limb: int | None) -> int:
+    """Kernel against plain version on x, both directions, lazy and not, at
+    a limb offset, and NTT->INTT identity; returns the largest |difference|."""
+    import torch
+    from lattigo_tpu_torch.ring import ntt_pallas
+    eng, err = ring._u32, 0
+    for inverse in (False, True):
+        xin = ntt_pallas.u32_plain(eng, x, 0, False, True) if inverse else x
+        for lazy in (False, True):
+            got = ntt_pallas.u32_cuda(eng, xin, 0, inverse, lazy)
+            want = ntt_pallas.u32_plain(eng, xin, 0, inverse, lazy)
+            torch.cuda.synchronize()
+            err = max(err, int((got - want).abs().max()))
+            check(torch.equal(got, want), f"u32 inverse={inverse} lazy={lazy} "
+                  f"at {tuple(x.shape)}: kernel != plain")
+            bound = (2 if inverse else 4) if lazy else 1
+            check(bool((got < bound * ring.q).all()), "u32 output out of range")
+        if limb is not None:
+            xi = x[:, limb:limb + 1].contiguous()
+            got = ntt_pallas.u32_cuda(eng, xi, limb, inverse, False)
+            want = ntt_pallas.u32_plain(eng, xi, limb, inverse, False)
+            full = ntt_pallas.u32_cuda(eng, x, 0, inverse, False)[:, limb:limb + 1]
+            check(torch.equal(got, want) and torch.equal(got, full),
+                  f"u32 inverse={inverse} at limb offset {limb}: kernel != plain")
+    check(torch.equal(ring.intt(ring.ntt(x)), x), "u32 NTT then INTT is not the identity")
+    return err
+
+
+def phase_u32_kernels(rows):
+    """The u32 kernel at the blind rotation's shape and at the bulk shape."""
+    import torch
+    from lattigo_tpu_torch.ring import ntt_pallas
+    from lattigo_tpu_torch.ring.ring import Ring
+    from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
+
+    pbr, _ = br_params()
+    n_bulk = 1 << LOG_N
+    bulk_q = NTTFriendlyPrimesGenerator(29, 2 * n_bulk).next_alternating_primes(15)
+    bulk = Ring(n_bulk, bulk_q, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = {}
+    for tag, ring, batch, limb in (("path", pbr.ring_q, (2,), None),
+                                   ("bulk", bulk, (BATCH,), 5)):
+        check(ring.ntt_engine == "u32-cuda", f"{tag} ring on {ring.ntt_engine}")
+        x = torch.randint(0, 1 << 62, batch + (len(ring.moduli), ring.n),
+                          generator=gen, device="cuda") % ring.q
+        err = check_u32(ring, x, limb)
+        xi = ntt_pallas.u32_plain(ring._u32, x, 0, False, True)
+        for inverse in (False, True):
+            xin = xi if inverse else x
+            reps = 200 if tag == "path" else 20
+            ms = cuda_ms(lambda: ntt_pallas.u32_cuda(ring._u32, xin, 0, inverse, False), reps)
+            plain_ms = cuda_ms(lambda: ntt_pallas.u32_plain(ring._u32, xin, 0, inverse, False), 3)
+            bound_ms, bound_by = u32_bound(ring._u32, tuple(x.shape))
+            shapes[(tag, inverse)] = dict(shape=list(x.shape), ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by, err=err)
+    out = []
+    for inverse, name, line in ((False, "ntt_u32_forward", 111), (True, "ntt_u32_inverse", 135)):
+        p, b = shapes[("path", inverse)], shapes[("bulk", inverse)]
+        out.append(dict(
+            name=name, route="cuda", source="lattigo_tpu_torch/csrc/ntt_pallas.cu",
+            replaces=f"lattigo_tpu/ring/ntt_pallas.py:{line}", launches=None,
+            max_abs_err=max(p["err"], b["err"]), ms=p["ms"], plain_ms=p["plain_ms"],
+            bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None,
+            shape=p["shape"], bulk_shape=b["shape"], bulk_ms=b["ms"],
+            bulk_plain_ms=b["plain_ms"], bulk_bound_ms=b["bound_ms"],
+            bulk_bound_by=b["bound_by"]))
+    print("phase 2 ntt_u32: bit-equal to the plain version (lazy, not lazy, "
+          "limb offset 5 at the bulk shape), NTT->INTT identity; " + ", ".join(
+              f"{r['name']} {r['ms']:.4f} ms at {r['shape']} (plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}) and {r['bulk_ms']:.4f} ms "
+              f"at {r['bulk_shape']} (plain {r['bulk_plain_ms']:.4f} ms, bound "
+              f"{r['bulk_bound_ms']:.4f} ms by {r['bulk_bound_by']})" for r in out))
+    rows.extend(out)
+
+
+def sign(x: float) -> float:
+    return 1.0 if x > 0 else (-1.0 if x < 0 else 0.0)
+
+
+def phase_blindrot(rows):
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import rlwe
+    from lattigo_tpu_torch.rgsw import blindrot
+    from lattigo_tpu_torch.ring import ntt_pallas
+
+    pbr, plwe = br_params()
+    rings = {"BR Q": pbr.ring_q, "BR P": pbr.ring_p, "LWE Q": plwe.ring_q}
+    for name, ring in rings.items():
+        check(ring.ntt_engine == "u32-cuda", f"ring {name} on {ring.ntt_engine}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    sk_lwe = rlwe.KeyGenerator(plwe).gen_secret_key(gen)
+    sk_br = rlwe.KeyGenerator(pbr).gen_secret_key(gen)
+    brk = blindrot.gen_evaluation_keys(gen, pbr, sk_br, plwe, sk_lwe)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    check(len(brk.brk) == plwe.n and len(brk.evk.galois_keys) == 11,
+          "wrong number of blind-rotation keys")
+
+    q_lwe, q_br = plwe.q_moduli[0], pbr.q_moduli[0]
+    values = [-1 + 2 * i / BR_SLOTS for i in range(BR_SLOTS)]
+    coeffs = [0] * plwe.n
+    for i, v in enumerate(values):
+        coeffs[i] = int(round(v * q_lwe / 4.0))
+    f = blindrot.init_test_polynomial(sign, q_br / 4.0, pbr, -1.0, 1.0)
+    encryptor = rlwe.Encryptor(plwe, sk_lwe)
+    decryptor = rlwe.Decryptor(pbr, sk_br)
+    ev = blindrot.BlindRotationEvaluator(pbr, plwe)
+
+    calls = {}
+    launch = ntt_pallas.u32_cuda
+
+    def recording(eng, x, limb_lo, inverse, lazy):
+        key = (id(eng), tuple(x.shape), limb_lo, inverse, lazy)
+        if key not in calls:
+            calls[key] = (eng, x.clone(), limb_lo, inverse, lazy)
+        return launch(eng, x, limb_lo, inverse, lazy)
+
+    ntt_pallas.u32_cuda = recording
+    lut_ms = []
+    try:
+        ntt_pallas.reset_launches()
+        pt = rlwe.Plaintext(value=plwe.ring_q.ntt(plwe.ring_q.from_int_coeffs(coeffs, 0), 0))
+        ct = encryptor.encrypt(gen, pt)
+        out = {}
+        for i in range(BR_SLOTS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out.update(ev.evaluate(ct, {i: f}, brk))
+            torch.cuda.synchronize()
+            lut_ms.append((time.perf_counter() - t1) * 1e3)
+        got = []
+        for i in range(BR_SLOTS):
+            ptb = decryptor.decrypt(out[i])
+            c = int(pbr.ring_q.intt(ptb.value)[0, 0])
+            got.append((c - q_br if c >= q_br // 2 else c) / (q_br / 4.0))
+        torch.cuda.synchronize()
+        launches = dict(ntt_pallas.LAUNCHES)
+    finally:
+        ntt_pallas.u32_cuda = launch
+    for i, v in enumerate(values):
+        if v != 0:
+            check(abs(round(got[i] * 8) / 8 - sign(v)) < 0.25,
+                  f"slot {i}: blind rotation of sign at {v} gave {got[i]:.4f}")
+    for r in rows:
+        if r["name"].startswith("ntt_u32"):
+            r["launches"] = launches["inverse" if r["name"].endswith("inverse") else "forward"]
+            check(r["launches"] > 0, f"{r['name']} not launched on the blind-rotation path")
+    for eng, x, limb_lo, inverse, lazy in calls.values():
+        k = launch(eng, x, limb_lo, inverse, lazy)
+        want = ntt_pallas.u32_plain(eng, x, limb_lo, inverse, lazy)
+        for r in rows:
+            if r["name"] == ("ntt_u32_inverse" if inverse else "ntt_u32_forward"):
+                r["max_abs_err"] = max(r["max_abs_err"], int((k - want).abs().max()))
+        check(torch.equal(k, want), f"u32 kernel != plain at blind-rotation call "
+              f"{tuple(x.shape)} limb_lo={limb_lo} inverse={inverse}")
+    shapes = sorted({(tuple(x.shape), lo, "inv" if inv else "fwd")
+                     for _, x, lo, inv, _ in calls.values()})
+    per_lut = {k: v / BR_SLOTS for k, v in launches.items()}
+    print(f"phase 4 blind rotation: BR logN={pbr.log_n} Q={pbr.q_moduli} "
+          f"P={pbr.p_moduli}, LWE logN={plwe.log_n} Q={plwe.q_moduli}; rings "
+          f"{', '.join(rings)} on u32-cuda; keys ({len(brk.brk)} RGSW, "
+          f"{len(brk.evk.galois_keys)} Galois) in {keygen_s:.3f} s; {BR_SLOTS} LUTs "
+          f"decode to sign(x) in every slot with x != 0 (got "
+          f"{[round(g, 4) for g in got]}); per LUT {np.mean(lut_ms):.3f} ms mean "
+          f"(min {min(lut_ms):.3f}, max {max(lut_ms):.3f}, first {lut_ms[0]:.3f}); "
+          f"u32 launches {launches} in the run, {per_lut} per LUT; kernel "
+          f"bit-equal to plain at the run's {len(calls)} distinct calls {shapes}")
+    print("phase 4 profile (one LUT): " + profile_step(
+        lambda: ev.evaluate(ct, {1: f}, brk), kernel="ntt_u32_kernel", host=False))
 
 
 def main() -> int:
@@ -287,7 +516,9 @@ def main() -> int:
           "lattigo_tpu_torch imported from outside this checkout")
     phase_build()
     rows = phase_kernels()
+    phase_u32_kernels(rows)
     phase_server(rows)
+    phase_blindrot(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

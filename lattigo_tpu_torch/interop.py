@@ -12,10 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lattigo_tpu_torch.rgsw.blindrot import BlindRotationKeySet
+from lattigo_tpu_torch.rgsw.rgsw import Ciphertext as RgswCiphertext
 from lattigo_tpu_torch.ring.ringqp import QPPoly
 from lattigo_tpu_torch.rlwe.elements import Ciphertext, Plaintext
 from lattigo_tpu_torch.rlwe.keys import (
-    GadgetCiphertext, RelinearizationKey, SecretKey,
+    EvaluationKeySet, GadgetCiphertext, GaloisKey, RelinearizationKey,
+    SecretKey,
 )
 
 
@@ -57,3 +60,31 @@ def ciphertext_from_numpy(value, device, is_ntt: bool = True,
 def plaintext_from_numpy(value, device, is_ntt: bool = True,
                          scale=1) -> Plaintext:
     return Plaintext(value=to_torch(value, device), is_ntt=is_ntt, scale=scale)
+
+
+def gadget_from_numpy(q, p, device) -> GadgetCiphertext:
+    """Gadget ciphertext from its rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]."""
+    return GadgetCiphertext(qp_from_numpy(q, p, device))
+
+
+def galois_key_from_numpy(q, p, gal_el: int, device) -> GaloisKey:
+    """Galois key from its gadget rows and its Galois element."""
+    return GaloisKey(gadget_from_numpy(q, p, device), int(gal_el))
+
+
+def rgsw_from_numpy(c0, c1, device):
+    """RGSW ciphertext from its two gadget halves, each a (q, p) pair of
+    row arrays as :func:`gadget_from_numpy` takes them."""
+    return RgswCiphertext(gadget_from_numpy(*c0, device),
+                          gadget_from_numpy(*c1, device))
+
+
+def blind_rotation_keys_from_numpy(brk, galois_keys, device):
+    """A whole blind-rotation key set: ``brk`` lists, per LWE secret
+    coefficient, the (c0, c1) halves of its RGSW key as
+    :func:`rgsw_from_numpy` takes them (None where a key is left out);
+    ``galois_keys`` maps each Galois element to its (q, p) rows."""
+    keys = [None if k is None else rgsw_from_numpy(*k, device) for k in brk]
+    gks = {int(g): galois_key_from_numpy(q, p, g, device)
+           for g, (q, p) in galois_keys.items()}
+    return BlindRotationKeySet(brk=keys, evk=EvaluationKeySet(galois_keys=gks))

@@ -37,6 +37,7 @@ import torch
 from lattigo_tpu_torch import build
 from lattigo_tpu_torch.device import resolve_device
 from lattigo_tpu_torch.ring.ntt import bit_reverse
+from lattigo_tpu_torch.ring.ntt_pallas import mred_lazy32 as _mred_lazy32
 
 MAX_Q_BITS = 29
 MIN_N = 4096
@@ -190,16 +191,6 @@ def gen_consts(moduli: list[int]) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Plain torch version
 # ---------------------------------------------------------------------------
-
-def _mred_lazy32(a, b, q, qinv):
-    """u32 a·b·2^{-32} mod q in [0, 2q) on int64 tensors holding u32
-    values; needs a·b < q·2^32 (the product may wrap int64: masked)."""
-    ab = a * b
-    hi = (ab >> 32) & M32
-    m = ((ab & M32) * qinv) & M32
-    mh = (m * q) >> 32
-    return (hi - mh + q) & M32
-
 
 def _digit_planes(x):
     """int64 (< 2^30) -> 4 balanced signed base-256 digit planes, float64."""

@@ -6,11 +6,22 @@ primes. Its tables are ``int64`` tensors (u64 bit patterns, ``[L, ...]``,
 limb-major) built on the ring's ``device``; a polynomial is a tensor
 ``int64[..., level+1, N]``.
 
-NTT engine: a STANDARD ring with 4096 ≤ N ≤ 16384 and every q < 2^29 uses
-the four-step digit-matmul engine (:mod:`.ntt_mxu`, whose CUDA kernel runs
-on the card and whose plain version runs on the CPU). Every other chain
-uses the plain radix-2 engine (:mod:`.ntt`). ``ring.ntt_engine`` names the
-choice. A kernel that fails to build or launch raises.
+NTT engine, chosen in this order (:func:`select_engine`, the rule of the
+JAX package's ``Ring._build_pallas``):
+
+* ``mxu``: a STANDARD ring with 4096 ≤ N ≤ 16384 and every q < 2^29 uses
+  the four-step digit-matmul engine (:mod:`.ntt_mxu`);
+* ``u32``: a STANDARD ring with 512 ≤ N ≤ 2^15 and every q < 2^30 that
+  the four-step engine did not take uses the fused u32 engine
+  (:mod:`.ntt_pallas`);
+* ``radix2``: every other chain uses the plain radix-2 engine (:mod:`.ntt`).
+
+Each kernel engine runs its CUDA kernel on the card and its plain version
+on the CPU; ``ring.ntt_engine`` names the choice. A kernel that fails to
+build or launch raises. The JAX package on a TPU sends a 28-bit chain at
+logN = 15 to its four-step kernel; the port's four-step kernel stops at
+logN = 14, so that chain takes the u32 engine here (non-lazy outputs are
+canonical either way).
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import numpy as np
 import torch
 
 from lattigo_tpu_torch.device import resolve_device
-from lattigo_tpu_torch.ring import modops, ntt as ntt_mod, ntt_mxu
+from lattigo_tpu_torch.ring import modops, ntt as ntt_mod, ntt_mxu, ntt_pallas
 from lattigo_tpu_torch.ring.modops import gen_bred_constant, gen_mred_constant
 from lattigo_tpu_torch.utils.primes import primitive_nth_root
 
@@ -76,6 +87,19 @@ class SubRing:
         return pow_f[brev], pow_i[brev], _mform_int(pow(n, -1, q), q)
 
 
+def select_engine(n: int, moduli: list[int], ring_type: str = STANDARD) -> str:
+    """The NTT engine a ring takes: "mxu", "u32" or "radix2"."""
+    if ring_type != STANDARD:
+        return "radix2"
+    if (ntt_mxu.MIN_N <= n <= ntt_mxu.MAX_N
+            and all(q < (1 << ntt_mxu.MAX_Q_BITS) for q in moduli)):
+        return "mxu"
+    if (ntt_pallas.MIN_N <= n <= ntt_pallas.MAX_N
+            and all(q < (1 << ntt_pallas.MAX_Q_BITS) for q in moduli)):
+        return "u32"
+    return "radix2"
+
+
 class Ring:
     """RNS ring Z_Q[X]/(X^N+1), Q = ∏ moduli, with tables on ``device``.
 
@@ -123,22 +147,25 @@ class Ring:
                 resc[last, i, 0] = _mform_int(pow(ql, -1, moduli[i]), moduli[i])
         self.rescale_constants = u64_tensor(resc, dev)
 
-        self._mxu = None
-        if (ntt_mxu.MIN_N <= n <= ntt_mxu.MAX_N
-                and all(q < (1 << ntt_mxu.MAX_Q_BITS) for q in moduli)):
-            self._mxu = ntt_mxu.NTTMxu(n, self.moduli,
-                                       [s.psi for s in self.subrings], dev)
+        self._engine = select_engine(n, self.moduli, ring_type)
+        psis = [s.psi for s in self.subrings]
+        self._mxu = (ntt_mxu.NTTMxu(n, self.moduli, psis, dev)
+                     if self._engine == "mxu" else None)
+        self._u32 = (ntt_pallas.NTTPallas(n, self.moduli, psis, dev)
+                     if self._engine == "u32" else None)
+        #: the kernel engine of this ring (four-step or u32), or None
+        self._kernel = self._mxu or self._u32
 
     # -- basic properties ---------------------------------------------------
 
     @property
     def ntt_engine(self) -> str:
-        """The NTT engine: "mxu-cuda" (the four-step CUDA kernel),
-        "mxu-plain" (its plain torch version, on the CPU) or "radix2-plain"
-        (the stage-by-stage engine)."""
-        if self._mxu is None:
+        """The NTT engine: "mxu-cuda" / "u32-cuda" (the four-step or u32
+        CUDA kernel), "mxu-plain" / "u32-plain" (its plain torch version, on
+        the CPU) or "radix2-plain" (the stage-by-stage engine)."""
+        if self._kernel is None:
             return "radix2-plain"
-        return "mxu-cuda" if self.device.type == "cuda" else "mxu-plain"
+        return self._engine + ("-cuda" if self.device.type == "cuda" else "-plain")
 
     @property
     def max_level(self) -> int:
@@ -154,6 +181,36 @@ class Ring:
         l = self._lvl(level) + 1
         return self.q[:l], self.qinv[:l], self.bred_hi[:l], self.bred_lo[:l]
 
+    # -- polynomial constructors --------------------------------------------
+
+    def from_int_coeffs(self, coeffs, level: int | None = None):
+        """Lift signed/unsigned Python-int coefficients into RNS residues,
+        int64[level+1, N] on the ring's device."""
+        l = self._lvl(level)
+        out = np.array([[int(c) % q for c in coeffs]
+                        for q in self.moduli[: l + 1]], dtype=np.uint64)
+        return u64_tensor(out, self.device)
+
+    def to_int_coeffs(self, poly, level: int | None = None,
+                      centered: bool = True) -> list[int]:
+        """CRT-reconstruct one [level+1, N] poly to Python ints (on the host;
+        centered into (-Q/2, Q/2] unless ``centered`` is False)."""
+        l = self._lvl(level)
+        x = poly.detach().cpu().numpy().view(np.uint64)
+        if x.ndim != 2:
+            raise ValueError("to_int_coeffs expects a single [L, N] poly")
+        big_q = self.modulus_at_level(l)
+        acc = [0] * self.n
+        for i in range(l + 1):
+            qi = self.moduli[i]
+            qh = big_q // qi
+            lag = qh * pow(qh, -1, qi)
+            row = x[i].tolist()
+            acc = [(a + int(v) * lag) % big_q for a, v in zip(acc, row)]
+        if centered:
+            acc = [c - big_q if c > big_q // 2 else c for c in acc]
+        return acc
+
     # -- elementwise ops ----------------------------------------------------
 
     def add(self, a, b, level: int | None = None):
@@ -164,9 +221,17 @@ class Ring:
         q, *_ = self.tables(level)
         return modops.sub_mod(a, b, q)
 
+    def neg(self, a, level: int | None = None):
+        q, *_ = self.tables(level)
+        return modops.neg_mod(a, q)
+
     def mform(self, a, level: int | None = None):
         q, _, bhi, blo = self.tables(level)
         return modops.mform(a, q, bhi, blo)
+
+    def imform(self, a, level: int | None = None):
+        q, qinv, *_ = self.tables(level)
+        return modops.imform(a, q, qinv)
 
     def mul_mont(self, a, b, level: int | None = None):
         """a·b with exactly one operand in Montgomery form."""
@@ -188,15 +253,15 @@ class Ring:
     # -- NTT ------------------------------------------------------------------
 
     def ntt(self, a, level: int | None = None, lazy: bool = False):
-        if self._mxu is not None:
-            return self._mxu.ntt(a.contiguous(), lazy=lazy)
+        if self._kernel is not None:
+            return self._kernel.ntt(a.contiguous(), lazy=lazy)
         l = self._lvl(level) + 1
         return ntt_mod.ntt(a, self.roots[:l], self.q[:l], self.qinv[:l],
                            self.log_n, lazy=lazy, small=self.small)
 
     def intt(self, a, level: int | None = None, lazy: bool = False):
-        if self._mxu is not None:
-            return self._mxu.intt(a.contiguous(), lazy=lazy)
+        if self._kernel is not None:
+            return self._kernel.intt(a.contiguous(), lazy=lazy)
         l = self._lvl(level) + 1
         return ntt_mod.intt(a, self.iroots[:l], self.ninv[:l], self.q[:l],
                             self.qinv[:l], self.log_n, lazy=lazy,
@@ -204,15 +269,15 @@ class Ring:
 
     def ntt_single(self, i: int, a, lazy: bool = False):
         """NTT over subring i only; a has a singleton limb axis [..., 1, N]."""
-        if self._mxu is not None:
-            return self._mxu.ntt_single(i, a.contiguous(), lazy=lazy)
+        if self._kernel is not None:
+            return self._kernel.ntt_single(i, a.contiguous(), lazy=lazy)
         s = slice(i, i + 1)
         return ntt_mod.ntt(a, self.roots[s], self.q[s], self.qinv[s],
                            self.log_n, lazy=lazy, small=self.small)
 
     def intt_single(self, i: int, a, lazy: bool = False):
-        if self._mxu is not None:
-            return self._mxu.intt_single(i, a.contiguous(), lazy=lazy)
+        if self._kernel is not None:
+            return self._kernel.intt_single(i, a.contiguous(), lazy=lazy)
         s = slice(i, i + 1)
         return ntt_mod.intt(a, self.iroots[s], self.ninv[s], self.q[s],
                             self.qinv[s], self.log_n, lazy=lazy,

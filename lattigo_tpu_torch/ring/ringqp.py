@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 import torch
 
-from lattigo_tpu_torch.ring import sampling
+from lattigo_tpu_torch.ring import automorphism as auto_mod, sampling
 
 
 @dataclass
@@ -45,9 +45,17 @@ class RingQP:
         return self._map(lambda x, y: self.ring_q.sub(x, y, level_q),
                          lambda x, y: self.ring_p.sub(x, y), a, b)
 
+    def neg(self, a: QPPoly, level_q: int | None = None) -> QPPoly:
+        return self._map(lambda x: self.ring_q.neg(x, level_q),
+                         lambda x: self.ring_p.neg(x), a)
+
     def mform(self, a: QPPoly, level_q: int | None = None) -> QPPoly:
         return self._map(lambda x: self.ring_q.mform(x, level_q),
                          lambda x: self.ring_p.mform(x), a)
+
+    def imform(self, a: QPPoly, level_q: int | None = None) -> QPPoly:
+        return self._map(lambda x: self.ring_q.imform(x, level_q),
+                         lambda x: self.ring_p.imform(x), a)
 
     def mul_mont(self, a: QPPoly, b: QPPoly, level_q: int | None = None) -> QPPoly:
         return self._map(lambda x, y: self.ring_q.mul_mont(x, y, level_q),
@@ -60,6 +68,12 @@ class RingQP:
     def intt(self, a: QPPoly, level_q: int | None = None, lazy: bool = False) -> QPPoly:
         return self._map(lambda x: self.ring_q.intt(x, level_q, lazy=lazy),
                          lambda x: self.ring_p.intt(x, lazy=lazy), a)
+
+    def automorphism_ntt(self, a: QPPoly, gal_el: int) -> QPPoly:
+        """NTT-domain automorphism of both parts (one gather each)."""
+        idx = auto_mod.ntt_index(self.ring_q.n, gal_el, a.q.device)
+        p = None if a.p is None else auto_mod.apply_ntt(a.p, idx)
+        return QPPoly(auto_mod.apply_ntt(a.q, idx), p)
 
     def uniform(self, gen: torch.Generator, level_q: int | None = None,
                 batch: tuple[int, ...] = ()) -> QPPoly:

@@ -1,4 +1,5 @@
-"""Scheme-generic RLWE evaluator: gadget product and relinearization.
+"""Scheme-generic RLWE evaluator: gadget product, relinearization and
+automorphisms.
 
 Counterpart of the key-switching half of :mod:`lattigo_tpu.rlwe.evaluator`.
 The gadget product is a digit-unrolled Montgomery MAC over NTT-domain QP
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from lattigo_tpu_torch.ring import modops
+from lattigo_tpu_torch.ring import automorphism as auto_mod, modops
 from lattigo_tpu_torch.ring.ringqp import QPPoly
 from lattigo_tpu_torch.rlwe.elements import Ciphertext
 from lattigo_tpu_torch.rlwe.keys import (
@@ -91,3 +92,35 @@ class Evaluator:
                             + [v[..., i, :, :] for i in range(2, v.shape[-3] - 1)],
                             dim=-3)
         return ct.replace(value=v)
+
+    def apply_evaluation_key(self, ct: Ciphertext, evk) -> Ciphertext:
+        """Re-encrypt a degree-1 NTT ciphertext under the key ``evk`` (an
+        evaluation key or its gadget) switches to."""
+        if ct.degree != 1 or not ct.is_ntt:
+            raise ValueError("apply_evaluation_key takes a degree-1 NTT ciphertext")
+        level = ct.level
+        gadget = evk.gadget if hasattr(evk, "gadget") else evk
+        d = self.gadget_product(ct.value[..., 1, :, :], gadget, level)
+        d0 = self.params.ring_q.add(d[..., 0, :, :], ct.value[..., 0, :, :], level)
+        return ct.replace(value=torch.stack([d0, d[..., 1, :, :]], dim=-3))
+
+    def automorphism(self, ct: Ciphertext, gal_el: int) -> Ciphertext:
+        """σ_{gal_el}(ct): key-switch c1, then permute in the NTT domain."""
+        if gal_el == 1:
+            return ct
+        ks = self.apply_evaluation_key(ct, self.evk.galois_key(gal_el))
+        return ks.replace(value=auto_mod.automorphism_ntt(
+            ks.value, self.params.n, gal_el))
+
+    def automorphism_hoisted(self, ct: Ciphertext, digits: QPPoly,
+                             gal_el: int) -> Ciphertext:
+        """σ_{gal_el}(ct) from a precomputed decomposition of c1
+        (:meth:`decompose_ntt`)."""
+        if gal_el == 1:
+            return ct
+        gk = self.evk.galois_key(gal_el)
+        level = ct.level
+        d = self.gadget_product_hoisted(digits, gk.gadget, level)
+        d0 = self.params.ring_q.add(d[..., 0, :, :], ct.value[..., 0, :, :], level)
+        v = torch.stack([d0, d[..., 1, :, :]], dim=-3)
+        return ct.replace(value=auto_mod.automorphism_ntt(v, self.params.n, gal_el))

@@ -1,24 +1,29 @@
 """Key material containers + key generation.
 
 Counterpart of :mod:`lattigo_tpu.rlwe.keys` (secret keys, RNS gadget
-ciphertexts, relinearization keys). Key polynomials live in the NTT +
-Montgomery domain over R_QP, so every key-switch MAC is one ``mred_lazy``.
-Randomness comes from an explicit ``torch.Generator``.
+ciphertexts, relinearization and Galois keys). Key polynomials live in the
+NTT + Montgomery domain over R_QP, so every key-switch MAC is one
+``mred_lazy``. Randomness comes from an explicit ``torch.Generator``.
 
 Gadget layout: at level l with |P| = alpha the l+1 limbs split into
 beta = ceil((l+1)/alpha) digits; the gadget entry for digit d is P mod q_j
-on rows [d·alpha, (d+1)·alpha) and 0 elsewhere.
+on rows [d·alpha, (d+1)·alpha) and 0 elsewhere. Many keys of one shape are
+drawn at once on a leading batch axis (``batch``): a gadget ciphertext's
+value is then ``[*batch, beta, 2, LQ, N]`` and :func:`unstack_gadgets`
+splits it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
 from lattigo_tpu_torch.ring import modops, sampling
 from lattigo_tpu_torch.ring.ring import u64_tensor
+from lattigo_tpu_torch.ring import automorphism as auto_mod
 from lattigo_tpu_torch.ring.ringqp import QPPoly, stack as qp_stack
+from lattigo_tpu_torch.rlwe.errors import MissingGaloisKeyError
 from lattigo_tpu_torch.rlwe.params import Parameters
 
 
@@ -37,10 +42,18 @@ class SecretKey:
 class GadgetCiphertext:
     """Gadget-RLWE encryption: value.q int64[beta, 2, LQ, N] (+ P part).
 
-    Row (d, 0) = -a_d·s + e_d + m·g_d, row (d, 1) = a_d, NTT + Montgomery.
+    Row (d, 0) = -a_d·s + e_d + m·g_d, row (d, 1) = a_d, NTT + Montgomery
+    (the RGSW half made with ``row=1`` carries m·g_d on row (d, 1) instead).
     """
 
     value: QPPoly
+
+
+def unstack_gadgets(g: GadgetCiphertext) -> list[GadgetCiphertext]:
+    """Split a batch of gadget ciphertexts ([B, beta, 2, L, N]) into B."""
+    p = g.value.p
+    return [GadgetCiphertext(QPPoly(g.value.q[i], None if p is None else p[i]))
+            for i in range(g.value.q.shape[0])]
 
 
 @dataclass
@@ -51,10 +64,24 @@ class RelinearizationKey:
 
 
 @dataclass
+class GaloisKey:
+    """Evaluation key enabling X^i → X^{i·gal_el}."""
+
+    gadget: GadgetCiphertext
+    gal_el: int = 0
+
+
+@dataclass
 class EvaluationKeySet:
-    """In-memory evaluation-key set (relinearization only in this port)."""
+    """In-memory evaluation-key set: relinearization and Galois keys."""
 
     relinearization_key: RelinearizationKey | None = None
+    galois_keys: dict = field(default_factory=dict)   # gal_el -> GaloisKey
+
+    def galois_key(self, gal_el: int) -> GaloisKey:
+        if gal_el not in self.galois_keys:
+            raise MissingGaloisKeyError(gal_el)
+        return self.galois_keys[gal_el]
 
 
 class KeyGenerator:
@@ -80,12 +107,21 @@ class KeyGenerator:
                           p.device, (level_q + 1, 1))
 
     def gadget_encrypt(self, gen: torch.Generator, m_q, sk_out: SecretKey,
-                       level_q: int | None = None) -> GadgetCiphertext:
-        """Gadget-encrypt m (Q part, NTT + Montgomery, int64[lq+1, N])."""
+                       level_q: int | None = None, row: int = 0,
+                       batch: tuple[int, ...] = ()) -> GadgetCiphertext:
+        """Gadget-encrypt m (Q part, NTT + Montgomery, int64[..., lq+1, N]).
+
+        ``row`` selects the component that carries m·g: 0 (evaluation keys)
+        or 1 (the RGSW half with rows (−a·s + e, a + m·g)). With ``batch``
+        every draw carries those leading axes; m_q and sk_out broadcast
+        against them.
+        """
         p = self.params
         if p.ring_p is None:
             raise NotImplementedError(
                 "RNS gadget encryption requires an auxiliary P basis")
+        if row not in (0, 1):
+            raise ValueError(f"row must be 0 or 1, got {row}")
         level_q = p.max_level if level_q is None else level_q
         alpha = len(p.p_moduli)
         lq = level_q + 1
@@ -96,23 +132,55 @@ class KeyGenerator:
         sk_l = rqp.at_level(sk_out.value, level_q)
         rows = []
         for d in range(beta):
-            a = rqp.uniform(gen, level_q)
+            a = rqp.uniform(gen, level_q, batch)
             c1 = rqp.mform(a, level_q)
             a_s = rqp.mul_mont(a, sk_l, level_q)
-            e = rqp.ntt(rqp.sample_signed(gen, p.xe, level_q), level_q)
+            e = rqp.ntt(rqp.sample_signed(gen, p.xe, level_q, batch), level_q)
             c0 = rqp.mform(rqp.sub(e, a_s, level_q), level_q)
             lo, hi = d * alpha, min((d + 1) * alpha, lq)
             # m·g_d on the digit's own rows (both operands M-form → M-form)
             term = modops.mred(m_q[..., lo:hi, :], gfac[lo:hi], rq.q[lo:hi],
                                rq.qinv[lo:hi], rq.small)
-            c0q = c0.q.clone()
-            c0q[..., lo:hi, :] = modops.add_mod(c0q[..., lo:hi, :], term,
+            tgt = (c0 if row == 0 else c1).q.clone()
+            tgt[..., lo:hi, :] = modops.add_mod(tgt[..., lo:hi, :], term,
                                                 rq.q[lo:hi])
-            rows.append(qp_stack([QPPoly(c0q, c0.p), c1]))
-        return GadgetCiphertext(qp_stack(rows))
+            if row == 0:
+                c0 = QPPoly(tgt, c0.p)
+            else:
+                c1 = QPPoly(tgt, c1.p)
+            rows.append(qp_stack([c0, c1], dim=-3))
+        return GadgetCiphertext(qp_stack(rows, dim=-4))
 
     def gen_relinearization_key(self, gen: torch.Generator,
                                 sk: SecretKey) -> RelinearizationKey:
         """Gadget encryption of s² under s."""
         s2 = self.params.ring_q.mul_mont(sk.value.q, sk.value.q)
         return RelinearizationKey(self.gadget_encrypt(gen, s2, sk))
+
+    def gen_galois_key(self, gen: torch.Generator, gal_el: int,
+                       sk: SecretKey) -> GaloisKey:
+        """Key for X^i → X^{i·gal_el}: s encrypted under σ_{gal_el^{-1}}(s).
+
+        The gadget product re-encrypts from s to σ^{-1}(s); the
+        automorphism applied after it lands back on s.
+        """
+        return self.gen_galois_keys(gen, [gal_el], sk)[gal_el]
+
+    def gen_galois_keys(self, gen: torch.Generator, gal_els: list[int],
+                        sk: SecretKey) -> dict[int, GaloisKey]:
+        """All Galois keys in one batched gadget encryption: the permuted
+        secrets are stacked on a leading axis, one per Galois element."""
+        p = self.params
+        if not gal_els:
+            return {}
+        if p.ring_p is None:
+            raise NotImplementedError(
+                "Galois keys need the RNS gadget, which needs a P basis")
+        idx = torch.stack([auto_mod.ntt_index(p.n, p.galois_element_inverse(g),
+                                              p.device) for g in gal_els])
+        sk_out = SecretKey(QPPoly(
+            torch.movedim(sk.value.q[:, idx], -2, 0),
+            torch.movedim(sk.value.p[:, idx], -2, 0)))       # [G, L, N]
+        gadgets = unstack_gadgets(self.gadget_encrypt(
+            gen, sk.value.q, sk_out, batch=(len(gal_els),)))
+        return {g: GaloisKey(gd, g) for g, gd in zip(gal_els, gadgets)}

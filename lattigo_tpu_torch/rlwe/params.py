@@ -109,6 +109,25 @@ class Parameters:
             r *= p
         return r
 
+    # -- Galois elements -----------------------------------------------------
+
+    @property
+    def galois_gen(self) -> int:
+        """Generator of the rotation subgroup: 5."""
+        return 5
+
+    def galois_element(self, k: int) -> int:
+        """Galois element of a cyclic column rotation by k."""
+        return pow(self.galois_gen, k, self.nth_root)
+
+    def galois_element_inverse(self, gal_el: int) -> int:
+        return pow(gal_el, -1, self.nth_root)
+
+    @property
+    def galois_element_order_two(self) -> int:
+        """The row-swap / conjugation element NthRoot − 1."""
+        return self.nth_root - 1
+
     def __repr__(self) -> str:
         return (f"Parameters(logN={self.log_n}, "
                 f"logQ={[q.bit_length() for q in self.q_moduli]}, "

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from lattigo_tpu_torch.presets import bgv_tpu_params
-from lattigo_tpu_torch.ring import ntt_mxu
+from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
 from lattigo_tpu_torch.ring.ring import Ring
 from lattigo_tpu_torch.rlwe.params import gen_moduli
+from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +85,65 @@ def test_four_step_kernel_rejects_bad_input(cuda):
                                False, False)
     with pytest.raises(ValueError):
         ntt_mxu.four_step_cuda(eng, x, 1, False, False)
+
+
+def _u32_ring(logn, cuda, limbs=3):
+    """29-bit alternating primes: some >= 2^29, so the ring takes u32."""
+    n = 1 << logn
+    moduli = NTTFriendlyPrimesGenerator(29, 2 * n).next_alternating_primes(limbs)
+    return Ring(n, moduli, device=cuda)
+
+
+@pytest.mark.parametrize("logn", range(9, 16))
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_u32_kernel_matches_plain(cuda, logn, inverse, lazy):
+    ring = _u32_ring(logn, cuda)
+    assert ring.ntt_engine == "u32-cuda"
+    eng = ring._u32
+    x = _residues(ring, (3,), logn)
+    if inverse:                  # the inverse takes the forward's lazy range
+        x = ntt_pallas.u32_plain(eng, x, 0, False, True)
+    before = dict(ntt_pallas.LAUNCHES)
+    got = ntt_pallas.u32_cuda(eng, x, 0, inverse, lazy)
+    key = "inverse" if inverse else "forward"
+    assert ntt_pallas.LAUNCHES[key] == before[key] + 1
+    want = ntt_pallas.u32_plain(eng, x, 0, inverse, lazy)
+    assert torch.equal(got, want)
+    bound = (2 if inverse else 4) if lazy else 1
+    assert bool((got < bound * ring.q).all())
+
+
+@pytest.mark.parametrize("logn", [9, 10, 12, 15])
+def test_u32_kernel_roundtrip_and_offset(cuda, logn):
+    ring = _u32_ring(logn, cuda)
+    x = _residues(ring, (2,), 200 + logn)
+    y = ring.ntt(x)
+    assert torch.equal(ring.intt(y), x)
+    for i in (1, len(ring.moduli) - 1):
+        xi = x[:, i:i + 1].contiguous()
+        yi = ring.ntt_single(i, xi)
+        assert torch.equal(yi, y[:, i:i + 1])
+        assert torch.equal(yi, ntt_pallas.u32_plain(ring._u32, xi, i, False, False))
+        assert torch.equal(ring.intt_single(i, yi), xi)
+
+
+def test_u32_kernel_rejects_bad_input(cuda):
+    ring = _u32_ring(10, cuda)
+    eng = ring._u32
+    x = _residues(ring, (2,), 1)
+    with pytest.raises(TypeError):
+        ntt_pallas.u32_cuda(eng, x.to(torch.int32), 0, False, False)
+    with pytest.raises(ValueError):
+        ntt_pallas.u32_cuda(eng, x.transpose(0, 1), 0, False, False)
+    with pytest.raises(ValueError):
+        ntt_pallas.u32_cuda(eng, x[..., : ring.n // 2].contiguous(), 0,
+                            False, False)
+    with pytest.raises(ValueError):
+        ntt_pallas.u32_cuda(eng, x, 1, False, False)
+    psi = ring.subrings[0].psi
+    with pytest.raises(ValueError):                 # N < 512
+        ntt_pallas.NTTPallas(256, ring.moduli[:1], [psi], cuda)
+    big = NTTFriendlyPrimesGenerator(31, 2048).next_alternating_prime()
+    with pytest.raises(ValueError):                 # q >= 2^30
+        ntt_pallas.NTTPallas(1024, [big], [psi], cuda)
