@@ -13,7 +13,9 @@ Phases (one line each; any failure exits non-zero before the result):
    the four-step kernel (``ntt_mxu.cu``) at 4 polynomials x 15 limbs x
    16384 on the BGV chain; the u32 kernel (``ntt_pallas.cu``) at the blind
    rotation's own shape, 2 x 1 x 1024, and at 4 x 15 x 16384 on 15
-   alternating 29-bit primes;
+   alternating 29-bit primes; at 2 x 1 x 1024 also the u32 kernel's host
+   time per call (wall clock over 1000 back-to-back calls ending in one
+   synchronize);
 3. serve one batch of 4 requests on BGV ``bgv_tpu_params(14, 438)``
    (N = 16384, 13 + 2 primes < 2^29, T = 65537): encode + encrypt,
    ``rescale(mul_relin(a, b))``, decrypt + decode, every slot checked
@@ -28,7 +30,7 @@ Phases (one line each; any failure exits non-zero before the result):
    polynomial slot by slot, decrypted, every slot with x != 0 checked
    against sign(x); launch counts zeroed before and read after, every
    distinct u32 kernel call held against the plain version; one LUT
-   profiled;
+   profiled, which gives the u32 kernels' device time per launch;
 5. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
@@ -64,6 +66,19 @@ BR_SLOTS = 16
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def host_us_per_call(fn, reps: int = 1000) -> float:
+    """Mean host microseconds of fn() over reps back-to-back calls that
+    end in one synchronize, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -262,15 +277,17 @@ def phase_server(rows):
           f"{step_launches}; set-up {setup_s:.2f} s; step (mul_relin+rescale) "
           f"{step_ms:.3f} ms per batch of {BATCH}; whole request path "
           f"{serve_ms:.3f} ms")
-    print("phase 3 profile: " + profile_step(step))
+    print("phase 3 profile: " + profile_step(step)[0])
 
 
-def profile_step(step, kernel: str = "ntt_mxu_kernel", host: bool = True) -> str:
+def profile_step(step, kernel: str = "ntt_mxu_kernel",
+                 host: bool = True) -> tuple[str, dict]:
     """Device time of one step by kernel family, and the device's idle share
     of the step's wall time; ``kernel`` names the family whose share is
     reported. ``host=False`` records device activity only (for steps of
     hundreds of thousands of host ops, whose trace would take minutes to
-    sum)."""
+    sum). Also returns {kernel name: (device us, launches)} of that
+    family."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -288,15 +305,16 @@ def profile_step(step, kernel: str = "ntt_mxu_kernel", host: bool = True) -> str
             counts[ev.key] = ev.count
     total = sum(dev.values())
     if total == 0:
-        return "not measured (no device time in the trace)"
-    ntt = sum(v for k, v in dev.items() if kernel in k)
-    ntt_n = sum(v for k, v in counts.items() if kernel in k)
+        return "not measured (no device time in the trace)", {}
+    family = {k: (v, counts[k]) for k, v in dev.items() if kernel in k}
+    ntt = sum(v for v, _ in family.values())
+    ntt_n = sum(n for _, n in family.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:3]
     return (f"wall {wall_us:.0f} us, {sum(counts.values())} device kernels busy "
             f"{total:.0f} us (idle share {max(0.0, 1 - total / wall_us):.3f}), "
             f"{kernel}s {ntt:.0f} us in {ntt_n} launches ({ntt / total:.3f} of "
             f"device time); top: " + "; ".join(
-                f"{k[:50]} {v:.0f} us" for k, v in top))
+                f"{k[:50]} {v:.0f} us" for k, v in top)), family
 
 
 def u32_bound(eng, shape) -> tuple[float, str]:
@@ -383,6 +401,9 @@ def phase_u32_kernels(rows):
             bound_ms, bound_by = u32_bound(ring._u32, tuple(x.shape))
             shapes[(tag, inverse)] = dict(shape=list(x.shape), ms=ms, plain_ms=plain_ms,
                                           bound_ms=bound_ms, bound_by=bound_by, err=err)
+            if tag == "path":
+                shapes[(tag, inverse)]["host_us"] = host_us_per_call(
+                    lambda: ntt_pallas.u32_cuda(ring._u32, xin, 0, inverse, False))
     out = []
     for inverse, name, line in ((False, "ntt_u32_forward", 111), (True, "ntt_u32_inverse", 135)):
         p, b = shapes[("path", inverse)], shapes[("bulk", inverse)]
@@ -391,13 +412,15 @@ def phase_u32_kernels(rows):
             replaces=f"lattigo_tpu/ring/ntt_pallas.py:{line}", launches=None,
             max_abs_err=max(p["err"], b["err"]), ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None,
+            device_us_per_launch=None, host_us_per_call=p["host_us"],
             shape=p["shape"], bulk_shape=b["shape"], bulk_ms=b["ms"],
             bulk_plain_ms=b["plain_ms"], bulk_bound_ms=b["bound_ms"],
             bulk_bound_by=b["bound_by"]))
     print("phase 2 ntt_u32: bit-equal to the plain version (lazy, not lazy, "
           "limb offset 5 at the bulk shape), NTT->INTT identity; " + ", ".join(
               f"{r['name']} {r['ms']:.4f} ms at {r['shape']} (plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}) and {r['bulk_ms']:.4f} ms "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}; host "
+              f"{r['host_us_per_call']:.2f} us per call) and {r['bulk_ms']:.4f} ms "
               f"at {r['bulk_shape']} (plain {r['bulk_plain_ms']:.4f} ms, bound "
               f"{r['bulk_bound_ms']:.4f} ms by {r['bulk_bound_by']})" for r in out))
     rows.extend(out)
@@ -497,8 +520,20 @@ def phase_blindrot(rows):
           f"(min {min(lut_ms):.3f}, max {max(lut_ms):.3f}, first {lut_ms[0]:.3f}); "
           f"u32 launches {launches} in the run, {per_lut} per LUT; kernel "
           f"bit-equal to plain at the run's {len(calls)} distinct calls {shapes}")
-    print("phase 4 profile (one LUT): " + profile_step(
-        lambda: ev.evaluate(ct, {1: f}, brk), kernel="ntt_u32_kernel", host=False))
+    text, family = profile_step(lambda: ev.evaluate(ct, {1: f}, brk),
+                                kernel="ntt_u32_kernel", host=False)
+    print("phase 4 profile (one LUT): " + text)
+    for r in rows:
+        if r["name"].startswith("ntt_u32"):
+            # the kernel templates end in the direction flag: <..., true> inverse
+            flag = "true>" if r["name"].endswith("inverse") else "false>"
+            us = sum(v for k, (v, _) in family.items() if flag in k)
+            n = sum(c for k, (_, c) in family.items() if flag in k)
+            check(n > 0, f"{r['name']} absent from the LUT profile")
+            r["device_us_per_launch"] = us / n
+    print("phase 4 u32 device time per launch: " + ", ".join(
+        f"{r['name']} {r['device_us_per_launch']:.3f} us" for r in rows
+        if r["name"].startswith("ntt_u32")))
 
 
 def main() -> int:

@@ -20,8 +20,11 @@ Inverse stage (m = N/2 … 1, w = MForm32(ψ^{-brev(m+g)})):
 then ×N^{-1} on the Montgomery exit. Both repeat the TPU kernel's
 arithmetic step for step, so lazy outputs are the same integers: the
 forward's in [0, 4q), the inverse's in [0, 2q); otherwise [0, q). Inputs
-are read as their low 32 bits and must lie below 4q (the forward folds
-once from [0, 4q)).
+are read as their low 32 bits. The forward takes [0, 4q) (it folds once
+from there); the inverse takes [0, 2q): on an input in [2q, 4q), such as a
+lazy forward output, it returns other integers than the input's residue
+would give, in both packages, so a lazy forward output must not go to the
+inverse unreduced.
 
 The TPU kernel spreads the stage roots over ``[logN, N]`` tables for its
 roll-and-select butterflies; here one compact per-limb table of N roots
@@ -41,6 +44,7 @@ tensor to the kernel; there is no fallback between them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -153,40 +157,55 @@ _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 
 
-def _library():
-    lib = build.load("ntt_pallas")
-    fn = lib.ntt_u32_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_ptr] * 4 + [_int] * 6 + [_ptr]
+class _Engine(ctypes.Structure):
+    """``NttU32Engine`` of ``csrc/ntt_pallas.cu``."""
+    _fields_ = [("consts", _ptr), ("roots", _ptr), ("iroots", _ptr),
+                ("logn", _int), ("device", _int)]
+
+
+class _Binding:
+    """What a launch needs beyond its tensors, resolved once per engine:
+    the C function and the engine's tables, logN and device as one C
+    struct (``ptr`` is its address; the engine keeps the tables alive)."""
+
+    def __init__(self, eng: "NTTPallas"):
+        fn = build.load("ntt_pallas").ntt_u32_launch
+        fn.argtypes = [_ptr] * 3 + [_int] * 4 + [_ptr]
         fn.restype = _int
-    return fn
+        self.fn = fn
+        self.device = eng.device.index
+        self.engine = _Engine(eng.consts.data_ptr(), eng.roots.data_ptr(),
+                              eng.iroots.data_ptr(), eng.logn, self.device)
+        self.ptr = ctypes.addressof(self.engine)
 
 
 def u32_cuda(eng: "NTTPallas", x, limb_lo: int, inverse: bool, lazy: bool):
-    """Launch ``csrc/ntt_pallas.cu`` on x int64[..., l, N] (CUDA, contiguous)."""
+    """Launch ``csrc/ntt_pallas.cu`` on x int64[..., l, N] (CUDA, contiguous,
+    16-byte aligned). The kernel makes ``x.device`` current for its launch
+    when it is not, on that device's current stream."""
     if x.dtype != torch.int64:
         raise TypeError(f"u32 NTT kernel takes int64 residues, got {x.dtype}")
     if x.device != eng.device:
         raise ValueError(f"tensor on {x.device}, tables on {eng.device}")
-    if x.dim() < 2 or x.shape[-1] != eng.n:
-        raise ValueError(f"expected [..., limbs, {eng.n}], got {tuple(x.shape)}")
-    l = x.shape[-2]
-    if limb_lo < 0 or limb_lo + l > eng.consts.shape[0]:
+    shape = x.shape
+    if len(shape) < 2 or shape[-1] != eng.n:
+        raise ValueError(f"expected [..., limbs, {eng.n}], got {tuple(shape)}")
+    l = shape[-2]
+    if limb_lo < 0 or limb_lo + l > eng.limbs:
         raise ValueError(f"limbs [{limb_lo}, {limb_lo + l}) outside the "
-                         f"{eng.consts.shape[0]}-limb table")
+                         f"{eng.limbs}-limb table")
     if not x.is_contiguous():
         raise ValueError("u32 NTT kernel needs a contiguous tensor")
+    ptr = x.data_ptr()
+    if ptr % 16:
+        raise ValueError("u32 NTT kernel needs a 16-byte aligned tensor")
     out = torch.empty_like(x)
     rows = x.numel() // eng.n
     if rows == 0:
         return out
-    roots = eng.iroots if inverse else eng.roots
-    fn = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), eng.consts.data_ptr(),
-                 roots.data_ptr(), eng.logn, int(inverse), int(lazy), rows, l,
-                 limb_lo, stream)
+    k = eng._binding
+    err = k.fn(ptr, out.data_ptr(), k.ptr, inverse | lazy << 1, rows, l,
+               limb_lo, torch.cuda.current_stream(k.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"u32 NTT kernel launch failed: CUDA error {err}")
     LAUNCHES["inverse" if inverse else "forward"] += 1
@@ -217,11 +236,16 @@ class NTTPallas:
         self.device = resolve_device(device)
         self.n = n
         self.logn = n.bit_length() - 1
+        self.limbs = len(moduli)
         self.consts = _i32(gen_consts32(n, moduli)).to(self.device)
         self.roots = _i32(np.stack([gen_roots32(n, psi, q, False)
                                     for psi, q in zip(psis, moduli)])).to(self.device)
         self.iroots = _i32(np.stack([gen_roots32(n, psi, q, True)
                                      for psi, q in zip(psis, moduli)])).to(self.device)
+
+    @functools.cached_property
+    def _binding(self) -> _Binding:
+        return _Binding(self)
 
     def _call(self, x, limb_lo: int, inverse: bool, lazy: bool):
         if x.device.type == "cuda":

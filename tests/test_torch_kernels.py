@@ -114,7 +114,7 @@ def test_u32_kernel_matches_plain(cuda, logn, inverse, lazy):
     assert bool((got < bound * ring.q).all())
 
 
-@pytest.mark.parametrize("logn", [9, 10, 12, 15])
+@pytest.mark.parametrize("logn", range(9, 16))
 def test_u32_kernel_roundtrip_and_offset(cuda, logn):
     ring = _u32_ring(logn, cuda)
     x = _residues(ring, (2,), 200 + logn)
@@ -125,7 +125,31 @@ def test_u32_kernel_roundtrip_and_offset(cuda, logn):
         yi = ring.ntt_single(i, xi)
         assert torch.equal(yi, y[:, i:i + 1])
         assert torch.equal(yi, ntt_pallas.u32_plain(ring._u32, xi, i, False, False))
-        assert torch.equal(ring.intt_single(i, yi), xi)
+        xb = ring.intt_single(i, yi)
+        assert torch.equal(xb, ntt_pallas.u32_plain(ring._u32, yi, i, True, False))
+        assert torch.equal(xb, xi)
+
+
+@pytest.mark.parametrize("logn, batch, limbs", [
+    *[(logn, 1, rows) for logn in (9, 10, 14) for rows in (1, 2, 3, 5, 17)],
+    # one, two and four blocks per row at every chunk size the kernel has
+    (11, 5, 1), (12, 5, 1), (12, 100, 2), (13, 5, 1), (13, 50, 2),
+    (13, 100, 2), (14, 50, 2), (15, 3, 1)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_u32_kernel_geometry(cuda, logn, batch, limbs, inverse):
+    """Row counts around the block packing and the split of a row over a
+    cluster, on inputs up to the top of each contract: the forward takes
+    [0, 4q), the inverse [0, 2q)."""
+    ring = _u32_ring(logn, cuda, limbs)
+    eng = ring._u32
+    top = (2 if inverse else 4) * ring.q
+    g = torch.Generator(device=cuda).manual_seed(300 + logn)
+    x = torch.randint(0, 1 << 62, (batch, limbs, ring.n), generator=g,
+                      device=cuda) % top
+    x[..., ::7] = (top - 1).expand_as(x[..., ::7])
+    for lazy in (False, True):
+        got = ntt_pallas.u32_cuda(eng, x, 0, inverse, lazy)
+        assert torch.equal(got, ntt_pallas.u32_plain(eng, x, 0, inverse, lazy))
 
 
 def test_u32_kernel_rejects_bad_input(cuda):
@@ -141,6 +165,9 @@ def test_u32_kernel_rejects_bad_input(cuda):
                             False, False)
     with pytest.raises(ValueError):
         ntt_pallas.u32_cuda(eng, x, 1, False, False)
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        ntt_pallas.u32_cuda(eng, x.reshape(-1)[1:1 + ring.n].view(1, ring.n),
+                            0, False, False)
     psi = ring.subrings[0].psi
     with pytest.raises(ValueError):                 # N < 512
         ntt_pallas.NTTPallas(256, ring.moduli[:1], [psi], cuda)

@@ -4,6 +4,8 @@
   in Pallas interpret mode at logN 9 and 10 on two alternating 29-bit
   primes, forward and inverse, lazy and not, full chain and at limb 1, bit
   for bit (the lazy [0, 4q) / [0, 2q) outputs are the same integers);
+* the input range of both packages' u32 engines: the forward takes
+  [0, 4q), the inverse [0, 2q);
 * the compact u32 root tables against the JAX package's [logN, N] stage
   tables, which they collapse to;
 * the engine each (N, prime size) takes, by the rule of
@@ -73,6 +75,23 @@ def test_u32_single_limb_offset(pair, inverse):
     back = tr.ntt_single if inverse else tr.intt_single
     np.testing.assert_array_equal(
         to_numpy(back(1, tfn(1, to_torch(x1, "cpu")))), x1)
+
+
+@pytest.mark.parametrize("inverse, k", [(True, 0), (True, 1), (False, 0),
+                                        (False, 1), (False, 2), (False, 3)])
+def test_u32_input_contract(pair, inverse, k):
+    """The input range both packages take: [0, 2q) for the inverse (of
+    y + k q, y the forward of x, it returns x) and [0, 4q) for the forward
+    (of x + k q it returns the forward of x)."""
+    tr, jeng, moduli, x = pair
+    kq = k * np.array(moduli, dtype=np.uint64)[:, None]
+    y = np.asarray(jeng.ntt(jnp.asarray(x), 1, interpret=True))
+    xin, want = (y + kq, x) if inverse else (x + kq, y)
+    fn = jeng.intt if inverse else jeng.ntt
+    np.testing.assert_array_equal(
+        np.asarray(fn(jnp.asarray(xin), 1, interpret=True)), want)
+    got = tpal.u32_plain(tr._u32, to_torch(xin, "cpu"), 0, inverse, False)
+    np.testing.assert_array_equal(to_numpy(got), want)
 
 
 def _stage_tables(compact: np.ndarray, inverse: bool) -> np.ndarray:
