@@ -11,18 +11,20 @@ Phases (one line each; any failure exits non-zero before the result):
    lazy and not, through a non-zero limb offset too, and NTT then INTT as
    the identity; time kernel and plain version with CUDA events:
    the four-step kernel (``ntt_mxu.cu``) at 4 polynomials x 15 limbs x
-   16384 on the BGV chain; the u32 kernel (``ntt_pallas.cu``) at the blind
-   rotation's own shape, 2 x 1 x 1024, and at 4 x 15 x 16384 on 15
-   alternating 29-bit primes; at 2 x 1 x 1024 also the u32 kernel's host
-   time per call (wall clock over 1000 back-to-back calls ending in one
-   synchronize);
+   16384 on the BGV chain, with the blocks per (limb, polynomial) it picks
+   there (``split``), and at logN 12 and 13 on 2 x 3 x N; the u32 kernel
+   (``ntt_pallas.cu``) at the blind rotation's own shape, 2 x 1 x 1024,
+   and at 4 x 15 x 16384 on 15 alternating 29-bit primes; at 2 x 1 x 1024
+   also the u32 kernel's host time per call (wall clock over 1000
+   back-to-back calls ending in one synchronize);
 3. serve one batch of 4 requests on BGV ``bgv_tpu_params(14, 438)``
    (N = 16384, 13 + 2 primes < 2^29, T = 65537): encode + encrypt,
    ``rescale(mul_relin(a, b))``, decrypt + decode, every slot checked
    against numpy's a*b mod T; the kernels' launch counts are zeroed just
    before and read just after, and every distinct kernel call of that run
-   is held against the plain version on its own input; then the step is
-   timed after a warm-up and profiled once;
+   is held against the plain version on its own input (each printed with
+   its split); then the step is timed after a warm-up and profiled once,
+   which gives the four-step kernels' device time per launch;
 4. LMKCDEY blind rotation at Lattigo's blind-rotation parameters (BR ring
    logN 10, Q = 0x7fff801, P = 536881153; LWE ring logN 9, Q = 0x3001):
    key generation (512 RGSW keys, 11 Galois keys), then one LWE ciphertext
@@ -168,23 +170,69 @@ def phase_kernels():
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     y = ring.ntt(x)
     check(torch.equal(ring.intt(y), x), "NTT then INTT is not the identity")
+    for r in rows:
+        r["split"] = eng.split_for(BATCH * len(q + p), r["name"].endswith("inverse"))
+    # the smaller rings the kernel has templates for, at 2 x 3 x N
+    for logn in (12, 13):
+        lit_s = bgv_tpu_params(logn, LOG_QP)
+        qs, ps = gen_moduli(logn, 2 << logn, lit_s.log_q, lit_s.log_p)
+        small = Ring(1 << logn, (qs + ps)[:3], device="cuda")
+        check(small.ntt_engine == "mxu-cuda", f"logN={logn} on {small.ntt_engine}")
+        xs = torch.randint(0, 1 << 62, (2, 3, small.n), generator=gen,
+                           device="cuda") % small.q
+        for r in rows:
+            inverse = r["name"].endswith("inverse")
+            for lazy in (False, True):
+                got = ntt_mxu.four_step_cuda(small._mxu, xs, 0, inverse, lazy)
+                want = ntt_mxu.four_step_plain(small._mxu, xs, 0, inverse, lazy)
+                r["max_abs_err"] = max(r["max_abs_err"], int((got - want).abs().max()))
+                check(torch.equal(got, want), f"{r['name']} logN={logn} "
+                      f"lazy={lazy}: kernel != plain")
     print("phase 2 ntt_mxu: bit-equal to the plain version (lazy, not lazy, "
-          "limb offset 5), NTT->INTT identity; at "
-          f"{BATCH}x{len(q + p)}x{ring.n}: " + ", ".join(
-              f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})" for r in rows))
+          "limb offset 5; and at logN 12 and 13 on 2x3xN), NTT->INTT "
+          f"identity; at {BATCH}x{len(q + p)}x{ring.n}: " + ", ".join(
+              f"{r['name']} {r['ms']:.4f} ms with split {r['split']} (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']})" for r in rows))
     return rows
 
 
-def phase_server(rows):
+def record_calls(module, name: str, fn):
+    """Run fn() with ``module.name`` (a kernel wrapper taking eng, x,
+    limb_lo, inverse, lazy) recording the first input of every distinct
+    call, the launch counts zeroed before and read after. Returns fn's
+    result, {key: (eng, x, limb_lo, inverse, lazy)} and the counts."""
+    import torch
+    calls = {}
+    launch = getattr(module, name)
+
+    def recording(eng, x, limb_lo, inverse, lazy):
+        key = (id(eng), tuple(x.shape), limb_lo, inverse, lazy)
+        if key not in calls:
+            calls[key] = (eng, x.clone(), limb_lo, inverse, lazy)
+        return launch(eng, x, limb_lo, inverse, lazy)
+
+    setattr(module, name, recording)
+    try:
+        module.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(module.LAUNCHES)
+    finally:
+        setattr(module, name, launch)
+    return out, calls, launches
+
+
+def bgv_server():
+    """Phase 3's server on the card: parameters, keys, the inputs a and b
+    (BATCH requests), serve() (encrypt both, rescale(mul_relin), decrypt,
+    decode; returns ca, cb and the decoded slots) and step(ca, cb)."""
     import numpy as np
     import torch
     from lattigo_tpu_torch import rlwe
     from lattigo_tpu_torch.presets import bgv_tpu_params
-    from lattigo_tpu_torch.ring import ntt_mxu
     from lattigo_tpu_torch.schemes import bgv
 
-    t0 = time.perf_counter()
     params = bgv.Parameters(bgv_tpu_params(LOG_N, LOG_QP))   # on cuda
     check(params.ring_q.device.type == "cuda", "parameters not on the card")
     for name, ring in (("Q", params.ring_q), ("P", params.ring_p), ("T", params.ring_t)):
@@ -197,9 +245,6 @@ def phase_server(rows):
     encryptor = rlwe.Encryptor(params, sk)
     decryptor = rlwe.Decryptor(params, sk)
     ev = bgv.Evaluator(params, rlwe.EvaluationKeySet(rlk))
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-
     rng = np.random.default_rng(SEED)
     a = rng.integers(0, params.t, (BATCH, params.n))
     b = rng.integers(0, params.t, (BATCH, params.n))
@@ -210,24 +255,23 @@ def phase_server(rows):
         out = ev.rescale(ev.mul_relin(ca, cb))
         return ca, cb, encoder.decode(decryptor.decrypt(out))
 
-    # record the first input of every distinct kernel call of the main path
-    calls = {}
+    def step(ca, cb):
+        return ev.rescale(ev.mul_relin(ca, cb))
+
+    return params, a, b, serve, step
+
+
+def phase_server(rows):
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu
+
+    t0 = time.perf_counter()
+    params, a, b, serve, step_of = bgv_server()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    (ca, cb, got), calls, launches = record_calls(ntt_mxu, "four_step_cuda", serve)
     launch = ntt_mxu.four_step_cuda
-
-    def recording(eng, x, limb_lo, inverse, lazy):
-        key = (id(eng), tuple(x.shape), limb_lo, inverse, lazy)
-        if key not in calls:
-            calls[key] = (eng, x.clone(), limb_lo, inverse, lazy)
-        return launch(eng, x, limb_lo, inverse, lazy)
-
-    ntt_mxu.four_step_cuda = recording
-    try:
-        ntt_mxu.reset_launches()
-        ca, cb, got = serve()
-        torch.cuda.synchronize()
-        launches = dict(ntt_mxu.LAUNCHES)
-    finally:
-        ntt_mxu.four_step_cuda = launch
     check(np.array_equal(got, a * b % params.t), "decoded slots != a*b mod t")
     mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
     for r in mxu_rows:
@@ -243,11 +287,12 @@ def phase_server(rows):
                 r["max_abs_err"] = max(r["max_abs_err"], int((k - want).abs().max()))
         check(torch.equal(k, want), f"kernel != plain at main-path call "
               f"{tuple(x.shape)} limb_lo={limb_lo} inverse={inverse}")
-    shapes = sorted({(tuple(x.shape), lo, "inv" if inv else "fwd")
-                     for _, x, lo, inv, _ in calls.values()})
+    shapes = sorted({(tuple(x.shape), lo, "inv" if inv else "fwd",
+                      f"split {eng.split_for(x.numel() // eng.n, inv)}")
+                     for eng, x, lo, inv, _ in calls.values()})
 
     def step():
-        return ev.rescale(ev.mul_relin(ca, cb))
+        return step_of(ca, cb)
 
     ntt_mxu.reset_launches()
     step()
@@ -277,7 +322,17 @@ def phase_server(rows):
           f"{step_launches}; set-up {setup_s:.2f} s; step (mul_relin+rescale) "
           f"{step_ms:.3f} ms per batch of {BATCH}; whole request path "
           f"{serve_ms:.3f} ms")
-    print("phase 3 profile: " + profile_step(step)[0])
+    text, family = profile_step(step)
+    print("phase 3 profile: " + text)
+    for r in mxu_rows:
+        # the kernel templates end in the direction flag: <..., true> inverse
+        flag = "true>" if r["name"].endswith("inverse") else "false>"
+        us = sum(v for k, (v, _) in family.items() if flag in k)
+        n = sum(c for k, (_, c) in family.items() if flag in k)
+        check(n > 0, f"{r['name']} absent from the step's profile")
+        r["device_us_per_launch"] = us / n
+    print("phase 3 ntt_mxu device time per launch: " + ", ".join(
+        f"{r['name']} {r['device_us_per_launch']:.3f} us" for r in mxu_rows))
 
 
 def profile_step(step, kernel: str = "ntt_mxu_kernel",
@@ -461,19 +516,9 @@ def phase_blindrot(rows):
     decryptor = rlwe.Decryptor(pbr, sk_br)
     ev = blindrot.BlindRotationEvaluator(pbr, plwe)
 
-    calls = {}
-    launch = ntt_pallas.u32_cuda
-
-    def recording(eng, x, limb_lo, inverse, lazy):
-        key = (id(eng), tuple(x.shape), limb_lo, inverse, lazy)
-        if key not in calls:
-            calls[key] = (eng, x.clone(), limb_lo, inverse, lazy)
-        return launch(eng, x, limb_lo, inverse, lazy)
-
-    ntt_pallas.u32_cuda = recording
     lut_ms = []
-    try:
-        ntt_pallas.reset_launches()
+
+    def run():
         pt = rlwe.Plaintext(value=plwe.ring_q.ntt(plwe.ring_q.from_int_coeffs(coeffs, 0), 0))
         ct = encryptor.encrypt(gen, pt)
         out = {}
@@ -488,10 +533,10 @@ def phase_blindrot(rows):
             ptb = decryptor.decrypt(out[i])
             c = int(pbr.ring_q.intt(ptb.value)[0, 0])
             got.append((c - q_br if c >= q_br // 2 else c) / (q_br / 4.0))
-        torch.cuda.synchronize()
-        launches = dict(ntt_pallas.LAUNCHES)
-    finally:
-        ntt_pallas.u32_cuda = launch
+        return ct, got
+
+    (ct, got), calls, launches = record_calls(ntt_pallas, "u32_cuda", run)
+    launch = ntt_pallas.u32_cuda
     for i, v in enumerate(values):
         if v != 0:
             check(abs(round(got[i] * 8) / 8 - sign(v)) < 0.25,

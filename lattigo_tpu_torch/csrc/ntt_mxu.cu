@@ -1,38 +1,65 @@
 // Four-step negacyclic NTT / INTT for primes q < 2^29 as two exact int8
-// digit matmuls, for Hopper (sm_90a).
+// digit matmuls on Hopper's tensor cores (sm_90a, mma.sync).
 //
 // Replaces the TPU kernel lattigo_tpu/ring/ntt_mxu.py::_ntt_mxu_kernel
 // (forward branch :277-284, inverse branch :269-276), driven there by
 // NTTMxu._call. It computes the same function bit for bit, lazy range
-// included: N = R*C, the polynomial is split into four balanced base-256
-// digit planes, each contraction is one [4A, 4A] x [4A, B] product of
-// int8 digits with int32 sums (|P| <= 128*128*4A <= 2^23), the planes are
-// recombined mod q with one 32-bit Montgomery multiply split at 2^24, the
-// mid-step twiddle is one more Montgomery multiply, and the result leaves
-// in bit-reversed order, in [0, q) or, when lazy, in [0, 2q).
+// included: N = R*C (C = 128, R = 32, 64, 128 for logN = 12, 13, 14), the
+// polynomial is split into four balanced base-256 digit planes, each
+// contraction is one [4A, 4A] x [4A, B] product of int8 digits with int32
+// sums (|P| <= 128*128*4A <= 2^23, so the s8 x s8 -> s32 tensor-core
+// product is exact), the planes are recombined mod q with one 32-bit
+// Montgomery multiply split at 2^24, the mid-step twiddle is one more
+// Montgomery multiply, and the result leaves in bit-reversed order, in
+// [0, q) or, when lazy, in [0, 2q).
 //
 // What bounds it on an H100. Per (limb, polynomial) the two contractions
 // are 16*R^2*C + 16*R*C^2 int8 multiply-adds (67M at logN=14) against 16 N
-// bytes of int64 in and out, so with int8 tensor cores the work would be
-// bound by device memory. This first version computes the products with
-// __dp4a on the integer ALUs, which makes it bound by integer operations,
-// not bytes; PERF.md records its time beside the bytes bound.
+// bytes of int64 in and out plus the limb's weight digits and twiddles
+// (576 KB at logN=14, shared by a call's polynomials). At the card's int8
+// rate the products take less time than those bytes, so the work is bound
+// by device memory (7.3 us at 4 x 15 x 16384); the products run on int8
+// tensor cores (mma.sync.m16n8k32.s8) so that they stay below it. What
+// holds this version back is on-chip traffic: without sharing weights
+// between polynomials every block streams its limb's weight digits from
+// L2 (step 2's whole table in each of the S blocks of a pair), and every
+// k step of a warp waits on those loads.
 //
-// Design. One block of 256 threads per (limb, polynomial). The block reads
-// its int64 coefficients once, reduces them (Montgomery entry reduction),
-// and keeps the digit planes of both steps in shared memory (2 x 66 KB at
-// logN=14), laid out so each output's contraction is contiguous in bytes
-// (one int32 load feeds one __dp4a) and rows are padded by one word so the
-// 32 lanes of a warp hit 32 banks. Each warp owns two output rows per pass
-// and each lane four output columns, so a lane keeps 2 x 4 planes x 4
-// columns int32 sums in registers; the weight digits are the same for the
-// whole warp (one broadcast 16-byte load from L1/L2; 256 KB per limb stays
-// L2-resident). The forward result is staged through shared memory so the
-// int64 stores are coalesced. The TPU kernel's grid, its (8, 128) tiling
-// and its limb-major transpose have no counterpart here: the kernel reads
-// the [..., limbs, N] layout directly and takes a limb offset for the
-// single-limb entry points. mma/wgmma s8 -> s32, TMA and several
-// polynomials per block are left for a later version.
+// Design.
+// * Products: every contraction has the form
+//   P[(s, a)][b] = sum_k W[(s, a)][k] * D[b][k], the weight digits as the
+//   row-major A operand, the data digits as the column-major B operand.
+//   The host keeps each weight table also in fragment order (NTTMxu,
+//   mma_fragment_order), so one 16-byte ld.global.nc per lane feeds the
+//   A fragment of one mma, kPrefetch k steps ahead of the products. The
+//   data digits sit in shared memory with each B column's K bytes
+//   contiguous and rows padded to 16 mod 128 bytes, so the 32-bit
+//   B-fragment loads of a warp hit 32 banks.
+// * Recombine in registers: a warp owns a 16-row slab of outputs a and NT
+//   n8 tiles of columns b, and runs the four digit planes s = 0..3 of the
+//   weights as four m16 tiles against the same B fragments. The four
+//   planes of one output then sit in the same accumulator slot of the same
+//   thread, so recombine, the twiddle and the next step's digits (or the
+//   final normalisation and the int64 store) run on the accumulators.
+// * Split over S blocks with no exchange. The forward splits a (limb,
+//   polynomial) by t1: block k runs step 1 only on the weight rows
+//   (s, t1) of its t1 range, for every column, and step 2 on those t1
+//   columns only (output row t1 needs only row t1 of step 1). The inverse
+//   splits by j2: step 1 on the rows (s, j2) of its j2 range, step 2 on
+//   those j2 columns. Every block reads the whole polynomial (the second
+//   and later reads come from L2) and does 1/S of the multiply-adds; the
+//   outputs are disjoint. The wrapper (ring/ntt_mxu.py::NTTMxu.split_for)
+//   takes the least S at which two blocks share an SM and every SM gets a
+//   block: small calls split up to 8 ways, at logN = 14 never less than 2
+//   (one unsplit block's 132 KB of shared memory would fill an SM).
+// * One block of 256 threads, one launch per call, int64 in and out in
+//   the [..., limbs, N] layout with a limb offset, a template per logN in
+//   {12, 13, 14} and split S. Shared memory: the input's digit planes
+//   (4N bytes plus padding) and 1/S of the intermediate's.
+// Left for later versions: several polynomials per block (to share the
+// weight loads), wgmma with TMA-fed shared-memory tiles, clusters, and
+// logN 15-16 (whose 4N bytes of input digits exceed shared memory and need
+// a K-streamed layout).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,7 +68,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 2;
+constexpr int kMinBlocks = 2;     // blocks per SM the registers must allow
+constexpr int kPrefetch = 1;      // k steps the A fragments load ahead
 
 struct LimbConsts {
   uint32_t q, qinv, c24m, negb, onem;
@@ -68,222 +96,383 @@ __device__ __forceinline__ uint32_t recombine(int p0, int p1, int p2, int p3,
   return lo + mred_lazy32(hi, k.c24m, k.q, k.qinv) + k.negb;
 }
 
-// Balanced base-256 digits of x < 2^30, each in [-128, 128].
-__device__ __forceinline__ void digits4(uint32_t x, int8_t d[4]) {
+// Balanced base-256 digits of x < 2^30, each in [-128, 128], as their
+// two's-complement bytes (the low byte of the running value is the digit's
+// byte whether or not it carries).
+__device__ __forceinline__ void digits4(uint32_t x, uint32_t d[4]) {
   uint32_t v = x;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const uint32_t dd = v & 0xFFu;
-    const uint32_t c = dd >> 7;
-    v = (v >> 8) + c;
-    d[i] = static_cast<int8_t>(static_cast<int>(dd) - static_cast<int>(c << 8));
+    d[i] = v & 0xFFu;
+    v = (v >> 8) + (d[i] >> 7);
   }
 }
 
-// P_s[a][b] = sum_k W[s*A + a][k] * B[b*LD + k] over k < 4A, for every
-// output (a, b), a < A, b < BN; epi(a, b, P_0, P_1, P_2, P_3) consumes it.
-template <int A, int BN, int LD, class Epi>
-__device__ __forceinline__ void digit_matmul(const int8_t* __restrict__ W,
-                                             const int8_t* B, Epi epi) {
-  constexpr int K = 4 * A;
-  constexpr int JB = BN / 32;
-  static_assert(A % (kWarps * kRowsPerWarp) == 0, "A must be a multiple of 16");
-  static_assert(BN % 32 == 0 && JB >= 1 && JB <= 4, "BN must be 32..128");
-  static_assert(LD % 4 == 0, "rows must stay word aligned");
+// Final Montgomery exit to [0, 2q), then to [0, q) unless lazy.
+__device__ __forceinline__ int64_t finish(int p0, int p1, int p2, int p3,
+                                          const LimbConsts& k, bool lazy) {
+  uint32_t v = mred_lazy32(recombine(p0, p1, p2, p3, k), k.onem, k.q, k.qinv);
+  if (!lazy && v >= k.q) v -= k.q;
+  return static_cast<int64_t>(v);
+}
+
+// d += a * b on the tensor cores: A 16x32 s8 (row), B 32x8 s8 (col),
+// D 16x8 s32.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint4& a,
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// n8 tiles a warp takes at once: up to 4, fewer where that leaves warps
+// without work.
+__host__ __device__ constexpr int pick_nt(int slabs, int ntiles) {
+  int nt = 4;
+  while (nt > 1 && (ntiles % nt != 0 || slabs * (ntiles / nt) < kWarps)) nt /= 2;
+  return nt;
+}
+
+// P_s[a][b] = sum_k W[s*A + a0 + a][k] * B[b*LD + k] over k < K, for
+// a < AN, b < BN, with a0 = 16*mt0 and A = 16*MT rows in each plane s.
+// W is in fragment order: [4*MT m16 tiles][K/32 k steps][32 lanes] x 16
+// bytes, lane (g, t) holding rows g and g+8 at k 4t..4t+3 and 16+4t..19+4t
+// (the a0..a3 registers of mma.m16n8k32). epi(a, b, p) consumes the four
+// planes' sums p[s][j] of outputs (a, b + j), j = 0, 1.
+template <int AN, int BN, int K, int LD, int MT, class Epi>
+__device__ __forceinline__ void digit_matmul(const uint4* __restrict__ w,
+                                             int mt0, const int8_t* b,
+                                             Epi epi) {
+  constexpr int KS = K / 32;
+  constexpr int SLABS = AN / 16;
+  constexpr int NTILES = BN / 8;
+  constexpr int NT = pick_nt(SLABS, NTILES);
+  constexpr int NCH = NTILES / NT;
+  constexpr int PLANE = MT * KS * 32;           // uint4s from plane s to s+1
+  static_assert(AN % 16 == 0 && BN % 8 == 0 && K % 32 == 0, "tile shapes");
+  static_assert(LD % 128 == 16, "B rows must start 4 banks apart");
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int a0 = warp * kRowsPerWarp; a0 < A; a0 += kWarps * kRowsPerWarp) {
-    int acc[kRowsPerWarp][4][JB];
+  const int g = lane >> 2, t = lane & 3;
+  for (int u = threadIdx.x >> 5; u < SLABS * NCH; u += kWarps) {
+    const int slab = u / NCH;
+    const int n0 = (u % NCH) * (NT * 8);
+    const uint4* wp = w + static_cast<size_t>(mt0 + slab) * KS * 32 + lane;
+    const int8_t* bp = b + (n0 + g) * LD + 4 * t;
+    int acc[4][NT][4];
 #pragma unroll
-    for (int ta = 0; ta < kRowsPerWarp; ++ta)
+    for (int s = 0; s < 4; ++s)
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int jb = 0; jb < JB; ++jb) acc[ta][s][jb] = 0;
-#pragma unroll 2
-    for (int k = 0; k < K; k += 16) {
-      int4 w[kRowsPerWarp][4];
+        for (int r = 0; r < 4; ++r) acc[s][nt][r] = 0;
+    // a ring of A fragments, loaded kPrefetch k steps ahead of the products
+    // (the loops are unrolled, so the ring lives in registers)
+    constexpr int RING = kPrefetch + 1;
+    uint4 a[RING][4];
 #pragma unroll
-      for (int ta = 0; ta < kRowsPerWarp; ++ta)
+    for (int ks = 0; ks < kPrefetch && ks < KS; ++ks)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) a[ks][s] = __ldg(wp + s * PLANE + ks * 32);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if (ks + kPrefetch < KS) {
 #pragma unroll
         for (int s = 0; s < 4; ++s)
-          w[ta][s] = __ldg(reinterpret_cast<const int4*>(
-              W + static_cast<size_t>(s * A + a0 + ta) * K + k));
+          a[(ks + kPrefetch) % RING][s] =
+              __ldg(wp + s * PLANE + (ks + kPrefetch) * 32);
+      }
 #pragma unroll
-      for (int jb = 0; jb < JB; ++jb) {
-        const int* brow = reinterpret_cast<const int*>(B + (lane + 32 * jb) * LD + k);
-        const int d0 = brow[0], d1 = brow[1], d2 = brow[2], d3 = brow[3];
+      for (int nt = 0; nt < NT; ++nt) {
+        const int8_t* bk = bp + nt * 8 * LD + ks * 32;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bk);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bk + 16);
 #pragma unroll
-        for (int ta = 0; ta < kRowsPerWarp; ++ta)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            int v = acc[ta][s][jb];
-            v = __dp4a(w[ta][s].x, d0, v);
-            v = __dp4a(w[ta][s].y, d1, v);
-            v = __dp4a(w[ta][s].z, d2, v);
-            v = __dp4a(w[ta][s].w, d3, v);
-            acc[ta][s][jb] = v;
-          }
+        for (int s = 0; s < 4; ++s) mma_s8(acc[s][nt], a[ks % RING][s], b0, b1);
       }
     }
 #pragma unroll
-    for (int ta = 0; ta < kRowsPerWarp; ++ta)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int jb = 0; jb < JB; ++jb)
-        epi(a0 + ta, lane + 32 * jb, acc[ta][0][jb], acc[ta][1][jb],
-            acc[ta][2][jb], acc[ta][3][jb]);
+      for (int h = 0; h < 2; ++h) {
+        int p[4][2];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          p[s][0] = acc[s][nt][2 * h];
+          p[s][1] = acc[s][nt][2 * h + 1];
+        }
+        epi(slab * 16 + g + 8 * h, n0 + nt * 8 + 2 * t, p);
+      }
   }
 }
 
-template <int R, int C>
+// Shared memory of one block. Forward: IN = [C][LDR] digits of x (B of
+// step 1: column j2, k = (i, j1)), MID = [R/S][LDC] digits of step 1
+// (B of step 2: column t1, k = (i, j2)). Inverse: IN = [R][LDC] digits of
+// x (B of step 1: column t1, k = (i, t2)), MID = [C/S][LDR] digits of
+// step 1 (B of step 2: column j2, k = (i, t1)).
+template <int R, int C, int S, bool INV>
 struct Layout {
-  static constexpr int N = R * C;
-  // digits for a contraction over rows: [C][4R + 4], k = (i, row)
-  static constexpr int LDR = 4 * R + 4;
-  // digits for a contraction over columns: [R][4C + 4], k = (i, col)
-  static constexpr int LDC = 4 * C + 4;
-  static constexpr int ROWS_BYTES = C * LDR;
-  static constexpr int COLS_BYTES = R * LDC;
-  static constexpr int SMEM_BYTES = ROWS_BYTES + COLS_BYTES;
-  static_assert(R <= C, "staging of the forward output needs R <= C");
-  static_assert(R * (C + 1) * 4 <= ROWS_BYTES, "staging must fit");
+  static constexpr int LDR = 4 * R + 16;
+  static constexpr int LDC = 4 * C + 16;
+  static constexpr int IN_BYTES = INV ? R * LDC : C * LDR;
+  static constexpr int MID_BYTES = INV ? (C / S) * LDR : (R / S) * LDC;
+  static constexpr int SMEM_BYTES = IN_BYTES + MID_BYTES;
+  static_assert(C == 128 && R >= 32 && R <= C, "logN 12..14");
+  static_assert((INV ? C : R) / S >= 16, "a block needs a whole m16 slab");
 };
 
-// x, out: int64 [blocks, N] with block = poly * limbs + limb.
-// Forward tables: w1 = W1f [4R, 4R] (rows (s,t1), k (i,j1)), tw = TF [R, C],
-// w2 = W2f transposed [4C, 4C] (rows (s,t2), k (i,j2)).
-// Inverse tables: w1 = W1i transposed [4C, 4C] (rows (s,j2), k (i,t2)),
+// x, out: int64 [rows, N] with row = poly * limbs + limb; block
+// row * S + part. Weight tables in fragment order, per limb:
+// forward w1 = W1f [4R, 4R] (rows (s,t1), k (i,j1)), tw = TF [R, C],
+// w2 = W2f transposed [4C, 4C] (rows (s,t2), k (i,j2));
+// inverse w1 = W1i transposed [4C, 4C] (rows (s,j2), k (i,t2)),
 // tw = TI transposed [C, R], w2 = W2i [4R, 4R] (rows (s,j1), k (i,t1)).
-template <int R, int C, bool INV>
-__global__ void __launch_bounds__(kThreads)
+template <int R, int C, int S, bool INV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 ntt_mxu_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
                const uint32_t* __restrict__ consts,
-               const int8_t* __restrict__ w1, const uint32_t* __restrict__ tw,
-               const int8_t* __restrict__ w2, int limbs, int limb_lo,
-               int lazy) {
-  using L = Layout<R, C>;
-  constexpr int N = L::N;
+               const uint4* __restrict__ w1, const uint32_t* __restrict__ tw,
+               const uint4* __restrict__ w2, int limbs, int limb_lo,
+               int lazy_flag) {
+  using L = Layout<R, C, S, INV>;
+  constexpr int N = R * C;
   constexpr int LDR = L::LDR;
   constexpr int LDC = L::LDC;
+  constexpr int A1 = INV ? C : R;            // step 1 weights [4 A1, 4 A1]
+  constexpr int A2 = INV ? R : C;            // step 2 weights [4 A2, 4 A2]
   extern __shared__ __align__(16) int8_t smem[];
-  int8_t* rows = smem;
-  int8_t* cols = smem + L::ROWS_BYTES;
+  int8_t* in = smem;
+  int8_t* mid = smem + L::IN_BYTES;
 
-  const int limb = static_cast<int>(blockIdx.x) % limbs + limb_lo;
-  const size_t base = static_cast<size_t>(blockIdx.x) * N;
+  const int row = static_cast<int>(blockIdx.x) / S;
+  const int part = static_cast<int>(blockIdx.x) % S;
+  const int limb = row % limbs + limb_lo;
+  const int64_t* xr = x + static_cast<size_t>(row) * N;
+  int64_t* outr = out + static_cast<size_t>(row) * N;
   const uint32_t* kc = consts + limb * 8;
   const LimbConsts k{kc[0], kc[1], kc[2], kc[3], kc[4]};
-  constexpr size_t W1_SIZE = INV ? 16 * C * C : 16 * R * R;
-  constexpr size_t W2_SIZE = INV ? 16 * R * R : 16 * C * C;
-  const int8_t* w1l = w1 + limb * W1_SIZE;
-  const int8_t* w2l = w2 + limb * W2_SIZE;
+  const bool lazy = lazy_flag != 0;
+  const uint4* w1l = w1 + static_cast<size_t>(limb) * A1 * A1;
+  const uint4* w2l = w2 + static_cast<size_t>(limb) * A2 * A2;
   const uint32_t* twl = tw + static_cast<size_t>(limb) * N;
 
-  // Entry reduction to [0, 2q) < 2^30, then the four digit planes.
-  for (int idx = threadIdx.x; idx < N; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    const uint32_t v = mred_lazy32(
-        static_cast<uint32_t>(static_cast<uint64_t>(x[base + idx])),
-        k.onem, k.q, k.qinv);
-    int8_t d[4];
-    digits4(v, d);
+  if constexpr (!INV) {
+    // Entry reduction to [0, 2q) < 2^30 and the digit planes, transposed:
+    // in[c][(i, r)]. A warp takes 8 neighbouring columns by 4 quads of
+    // rows, so its loads are 64-byte runs and its word stores hit 32 banks.
+    constexpr int CB = C / 8;
+#pragma unroll 4
+    for (int it = threadIdx.x; it < N / 4; it += kThreads) {
+      const int c = (it & 7) | (((it >> 5) % CB) << 3);
+      const int r = 4 * (((it >> 3) & 3) | (((it >> 5) / CB) << 2));
+      uint32_t pk[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (INV) cols[r * LDC + i * C + c] = d[i];
-      else rows[c * LDR + i * R + r] = d[i];
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t v = mred_lazy32(
+            static_cast<uint32_t>(static_cast<uint64_t>(xr[(r + j) * C + c])),
+            k.onem, k.q, k.qinv);
+        uint32_t d[4];
+        digits4(v, d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pk[i] |= d[i] << (8 * j);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<uint32_t*>(in + c * LDR + i * R + r) = pk[i];
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  if (!INV) {
-    // step 1: contract j1 (rows), twiddle, digits for step 2
-    digit_matmul<R, C, LDR>(w1l, rows, [&](int t1, int c, int p0, int p1,
-                                           int p2, int p3) {
-      uint32_t b = recombine(p0, p1, p2, p3, k);
-      b = mred_lazy32(b, twl[t1 * C + c], k.q, k.qinv);
-      int8_t d[4];
-      digits4(b, d);
+    constexpr int RS = R / S;
+    const int t1b = part * RS;
+    // step 1: contract j1 on rows (s, t1) of this block's t1 range,
+    // twiddle, digits for step 2 into mid[t1 - t1b][(i, j2)]
+    digit_matmul<RS, C, 4 * R, LDR, R / 16>(
+        w1l, t1b / 16, in, [&](int a, int c, const int (&p)[4][2]) {
+          const uint2 tw2 = __ldg(reinterpret_cast<const uint2*>(
+              twl + (t1b + a) * C + c));
+          uint32_t pk[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) cols[t1 * LDC + i * C + c] = d[i];
-    });
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t v = mred_lazy32(
+                recombine(p[0][j], p[1][j], p[2][j], p[3][j], k),
+                j ? tw2.y : tw2.x, k.q, k.qinv);
+            uint32_t d[4];
+            digits4(v, d);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pk[i] |= d[i] << (8 * j);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<uint16_t*>(mid + a * LDC + i * C + c) =
+                static_cast<uint16_t>(pk[i]);
+        });
     __syncthreads();
-    // step 2: contract j2 (columns), normalise, stage for coalesced stores
-    uint32_t* stage = reinterpret_cast<uint32_t*>(rows);
-    digit_matmul<C, R, LDC>(w2l, cols, [&](int t2, int t1, int p0, int p1,
-                                           int p2, int p3) {
-      uint32_t v = mred_lazy32(recombine(p0, p1, p2, p3, k), k.onem, k.q, k.qinv);
-      if (!lazy && v >= k.q) v -= k.q;
-      stage[t1 * (C + 1) + t2] = v;
-    });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < N; idx += kThreads)
-      out[base + idx] = stage[(idx / C) * (C + 1) + idx % C];
+    // step 2: contract j2 on every row (s, t2), for this block's t1
+    // columns; normalise and store out[t1][t2]
+    digit_matmul<C, RS, 4 * C, LDC, C / 16>(
+        w2l, 0, mid, [&](int t2, int b, const int (&p)[4][2]) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            outr[(t1b + b + j) * C + t2] =
+                finish(p[0][j], p[1][j], p[2][j], p[3][j], k, lazy);
+        });
   } else {
-    // step 1: contract t2 (columns), twiddle, digits for step 2
-    digit_matmul<C, R, LDC>(w1l, cols, [&](int j2, int t1, int p0, int p1,
-                                           int p2, int p3) {
-      uint32_t h = recombine(p0, p1, p2, p3, k);
-      h = mred_lazy32(h, twl[j2 * R + t1], k.q, k.qinv);
-      int8_t d[4];
-      digits4(h, d);
+    // Entry reduction and digit planes in[t1][(i, t2)]: a thread takes four
+    // neighbouring coefficients of a row and stores one word per plane.
+#pragma unroll 4
+    for (int it = threadIdx.x; it < N / 4; it += kThreads) {
+      const int t1 = it / (C / 4);
+      const int t2 = 4 * (it % (C / 4));
+      uint32_t pk[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) rows[j2 * LDR + i * R + t1] = d[i];
-    });
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t v = mred_lazy32(
+            static_cast<uint32_t>(static_cast<uint64_t>(xr[4 * it + j])),
+            k.onem, k.q, k.qinv);
+        uint32_t d[4];
+        digits4(v, d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pk[i] |= d[i] << (8 * j);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<uint32_t*>(in + t1 * LDC + i * C + t2) = pk[i];
+    }
     __syncthreads();
-    // step 2: contract t1 (rows), normalise, store
-    digit_matmul<R, C, LDR>(w2l, rows, [&](int j1, int j2, int p0, int p1,
-                                           int p2, int p3) {
-      uint32_t v = mred_lazy32(recombine(p0, p1, p2, p3, k), k.onem, k.q, k.qinv);
-      if (!lazy && v >= k.q) v -= k.q;
-      out[base + j1 * C + j2] = v;
-    });
+
+    constexpr int CS = C / S;
+    const int j2b = part * CS;
+    // step 1: contract t2 on rows (s, j2) of this block's j2 range, for
+    // every t1; twiddle, digits for step 2 into mid[j2 - j2b][(i, t1)]
+    digit_matmul<CS, R, 4 * C, LDC, C / 16>(
+        w1l, j2b / 16, in, [&](int a, int t1, const int (&p)[4][2]) {
+          const uint2 tw2 = __ldg(reinterpret_cast<const uint2*>(
+              twl + (j2b + a) * R + t1));
+          uint32_t pk[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t v = mred_lazy32(
+                recombine(p[0][j], p[1][j], p[2][j], p[3][j], k),
+                j ? tw2.y : tw2.x, k.q, k.qinv);
+            uint32_t d[4];
+            digits4(v, d);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pk[i] |= d[i] << (8 * j);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<uint16_t*>(mid + a * LDR + i * R + t1) =
+                static_cast<uint16_t>(pk[i]);
+        });
+    __syncthreads();
+    // step 2: contract t1 on every row (s, j1), for this block's j2
+    // columns; normalise and store out[j1][j2] two at a time
+    digit_matmul<R, CS, 4 * R, LDR, R / 16>(
+        w2l, 0, mid, [&](int j1, int b, const int (&p)[4][2]) {
+          longlong2 o;
+          o.x = finish(p[0][0], p[1][0], p[2][0], p[3][0], k, lazy);
+          o.y = finish(p[0][1], p[1][1], p[2][1], p[3][1], k, lazy);
+          *reinterpret_cast<longlong2*>(outr + j1 * C + j2b + b) = o;
+        });
   }
 }
 
-template <int R, int C, bool INV>
+template <int R, int C, int S, bool INV>
 cudaError_t launch(const int64_t* x, int64_t* out, const uint32_t* consts,
-                   const int8_t* w1, const uint32_t* tw, const int8_t* w2,
-                   int blocks, int limbs, int limb_lo, int lazy,
+                   const uint4* w1, const uint32_t* tw, const uint4* w2,
+                   int rows, int limbs, int limb_lo, int lazy, int device,
                    cudaStream_t stream) {
-  constexpr int smem = Layout<R, C>::SMEM_BYTES;
-  auto kern = ntt_mxu_kernel<R, C, INV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<blocks, kThreads, smem, stream>>>(x, out, consts, w1, tw, w2, limbs,
-                                           limb_lo, lazy);
-  return cudaGetLastError();
+  if constexpr ((INV ? C : R) / S < 16) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int smem = Layout<R, C, S, INV>::SMEM_BYTES;
+    auto kern = ntt_mxu_kernel<R, C, S, INV>;
+    static uint64_t ready = 0;               // devices with the attribute set
+    const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+    if (!(ready & bit)) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      ready |= bit;
+    }
+    kern<<<rows * S, kThreads, smem, stream>>>(x, out, consts, w1, tw, w2,
+                                               limbs, limb_lo, lazy);
+    return cudaGetLastError();
+  }
 }
 
 template <bool INV>
-cudaError_t dispatch(int logn, const int64_t* x, int64_t* out,
-                     const uint32_t* consts, const int8_t* w1,
-                     const uint32_t* tw, const int8_t* w2, int blocks,
-                     int limbs, int limb_lo, int lazy, cudaStream_t stream) {
-  switch (logn) {
-    case 12: return launch<32, 128, INV>(x, out, consts, w1, tw, w2, blocks, limbs, limb_lo, lazy, stream);
-    case 13: return launch<64, 128, INV>(x, out, consts, w1, tw, w2, blocks, limbs, limb_lo, lazy, stream);
-    case 14: return launch<128, 128, INV>(x, out, consts, w1, tw, w2, blocks, limbs, limb_lo, lazy, stream);
-    default: return cudaErrorInvalidValue;
+cudaError_t dispatch(int logn, int split, const int64_t* x, int64_t* out,
+                     const uint32_t* consts, const uint4* w1,
+                     const uint32_t* tw, const uint4* w2, int rows, int limbs,
+                     int limb_lo, int lazy, int device, cudaStream_t stream) {
+#define NTT_MXU_CASE(LOGN, R, S)                                            \
+  case (LOGN) * 16 + (S):                                                   \
+    return launch<R, 128, S, INV>(x, out, consts, w1, tw, w2, rows, limbs,  \
+                                  limb_lo, lazy, device, stream);
+  switch (logn * 16 + split) {
+    NTT_MXU_CASE(12, 32, 1)
+    NTT_MXU_CASE(12, 32, 2)
+    NTT_MXU_CASE(12, 32, 4)
+    NTT_MXU_CASE(12, 32, 8)
+    NTT_MXU_CASE(13, 64, 1)
+    NTT_MXU_CASE(13, 64, 2)
+    NTT_MXU_CASE(13, 64, 4)
+    NTT_MXU_CASE(13, 64, 8)
+    NTT_MXU_CASE(14, 128, 1)
+    NTT_MXU_CASE(14, 128, 2)
+    NTT_MXU_CASE(14, 128, 4)
+    NTT_MXU_CASE(14, 128, 8)
+    default:
+      return cudaErrorInvalidValue;
   }
+#undef NTT_MXU_CASE
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int ntt_mxu_launch(const void* x, void* out, const void* consts,
-                              const void* w1, const void* tw, const void* w2,
-                              int logn, int inverse, int lazy, int blocks,
-                              int limbs, int limb_lo, void* stream) {
+// What a launch needs of one engine, filled once by the binding: the
+// tables on `device` (weights in fragment order) and logN.
+struct NttMxuEngine {
+  const uint32_t* consts;   // [L, 8]
+  const uint4* w1f;         // [L, 16 R^2] bytes
+  const uint32_t* tf;       // [L, R, C]
+  const uint4* w2f;         // [L, 16 C^2] bytes
+  const uint4* w1i;         // [L, 16 C^2] bytes
+  const uint32_t* ti;       // [L, C, R]
+  const uint4* w2i;         // [L, 16 R^2] bytes
+  int logn;
+  int device;
+};
+
+// flags: bit 0 inverse, bit 1 lazy. rows = polynomials x limbs; the grid
+// is rows * split blocks. Launches on `stream` of the engine's device
+// (made current for the launch when it is not) and returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int ntt_mxu_launch(const void* x, void* out,
+                              const NttMxuEngine* eng, int flags, int rows,
+                              int limbs, int limb_lo, int split, void* stream) {
+  const int device = eng->device;
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
   const auto* xi = static_cast<const int64_t*>(x);
   auto* oi = static_cast<int64_t*>(out);
-  const auto* ci = static_cast<const uint32_t*>(consts);
-  const auto* w1i = static_cast<const int8_t*>(w1);
-  const auto* twi = static_cast<const uint32_t*>(tw);
-  const auto* w2i = static_cast<const int8_t*>(w2);
   auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      inverse ? dispatch<true>(logn, xi, oi, ci, w1i, twi, w2i, blocks, limbs, limb_lo, lazy, s)
-              : dispatch<false>(logn, xi, oi, ci, w1i, twi, w2i, blocks, limbs, limb_lo, lazy, s);
+  const int lazy = (flags >> 1) & 1;
+  err = flags & 1
+            ? dispatch<true>(eng->logn, split, xi, oi, eng->consts, eng->w1i,
+                             eng->ti, eng->w2i, rows, limbs, limb_lo, lazy,
+                             device, s)
+            : dispatch<false>(eng->logn, split, xi, oi, eng->consts, eng->w1f,
+                              eng->tf, eng->w2f, rows, limbs, limb_lo, lazy,
+                              device, s);
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
+  }
   return static_cast<int>(err);
 }

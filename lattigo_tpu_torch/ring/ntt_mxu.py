@@ -20,6 +20,10 @@ Two implementations of the same function live here:
   matmuls, exact because every partial sum stays below 2^24, so it runs on
   the CPU and on CUDA alike;
 * the CUDA kernel ``csrc/ntt_mxu.cu``, launched by :func:`four_step_cuda`.
+  Its products run on int8 tensor cores; it reads the weight digits in
+  the order of its ``mma`` A fragments (:func:`mma_fragment_order`), and
+  splits each (limb, polynomial) over S ∈ {1, 2, 4, 8} blocks that never
+  exchange data (:meth:`NTTMxu.split_for`).
 
 :class:`NTTMxu` sends a CPU tensor to the plain version and a CUDA tensor
 to the kernel; there is no fallback between them. Requires q < 2^29 and
@@ -30,6 +34,7 @@ to the kernel; there is no fallback between them. Requires q < 2^29 and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -45,6 +50,11 @@ MAX_N = 1 << 14
 M8 = 0xFF
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
+#: Splits of one (limb, polynomial) over blocks that the kernel has.
+SPLITS = (1, 2, 4, 8)
+#: Shared memory an H100 SM gives its blocks, and what it keeps per block.
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_BLOCK = 1024
 
 #: Launch counts of the CUDA kernel, by direction. Each launch adds one;
 #: the plain version adds nothing.
@@ -188,6 +198,37 @@ def gen_consts(moduli: list[int]) -> np.ndarray:
     return consts
 
 
+def mma_fragment_order(w: np.ndarray) -> np.ndarray:
+    """int8 [..., M, K] -> [..., M·K] in the order the kernel loads its
+    ``mma.m16n8k32`` A fragments: [M/16 tiles][K/32 k steps][32 lanes][16
+    bytes], lane 4g + t holding rows g and g + 8 of the tile at k 4t..4t+3
+    (bytes 0-3 and 4-7) and at k 16+4t..19+4t (bytes 8-11 and 12-15)."""
+    *lead, m, k = w.shape
+    v = w.reshape(*lead, m // 16, 2, 8, k // 32, 2, 4, 4)
+    n = len(lead)                 # tile, h, g, step, half, t, byte
+    perm = [*range(n), *(n + i for i in (0, 3, 2, 5, 4, 1, 6))]
+    return np.ascontiguousarray(v.transpose(perm)).reshape(*lead, m * k)
+
+
+def kernel_smem(rr: int, cc: int, split: int, inverse: bool) -> int:
+    """Shared-memory bytes of one block of ``csrc/ntt_mxu.cu`` (its
+    ``Layout``): the input's digit planes and 1/split of step 1's, rows
+    padded to 16 mod 128 bytes."""
+    ldr, ldc = 4 * rr + 16, 4 * cc + 16
+    if inverse:
+        return rr * ldc + cc // split * ldr
+    return cc * ldr + rr // split * ldc
+
+
+def pick_split(rows: int, sms: int, least: int, most: int) -> int:
+    """The least S in :data:`SPLITS` from ``least`` to ``most`` with
+    rows·S ≥ sms."""
+    s = least
+    while s < most and rows * s < sms:
+        s *= 2
+    return s
+
+
 # ---------------------------------------------------------------------------
 # Plain torch version
 # ---------------------------------------------------------------------------
@@ -257,18 +298,38 @@ _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 
 
-def _library():
-    lib = build.load("ntt_mxu")
-    fn = lib.ntt_mxu_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_ptr] * 6 + [_int] * 6 + [_ptr]
+class _Engine(ctypes.Structure):
+    """``NttMxuEngine`` of ``csrc/ntt_mxu.cu``."""
+    _fields_ = [("consts", _ptr), ("w1f", _ptr), ("tf", _ptr), ("w2f", _ptr),
+                ("w1i", _ptr), ("ti", _ptr), ("w2i", _ptr), ("logn", _int),
+                ("device", _int)]
+
+
+class _Binding:
+    """What a launch needs beyond its tensors, resolved once per engine:
+    the C function and the engine's tables, logN and device as one C
+    struct (``ptr`` is its address; the engine keeps the tables alive)."""
+
+    def __init__(self, eng: "NTTMxu"):
+        fn = build.load("ntt_mxu").ntt_mxu_launch
+        fn.argtypes = [_ptr] * 3 + [_int] * 5 + [_ptr]
         fn.restype = _int
-    return fn
+        self.fn = fn
+        self.device = eng.device.index
+        self.engine = _Engine(
+            eng.consts.data_ptr(), eng.w1f_mma.data_ptr(), eng.tf.data_ptr(),
+            eng.w2f_mma.data_ptr(), eng.w1i_mma.data_ptr(),
+            eng.ti_t.data_ptr(), eng.w2i_mma.data_ptr(), eng.logn, self.device)
+        self.ptr = ctypes.addressof(self.engine)
 
 
 def four_step_cuda(eng: "NTTMxu", x, limb_lo: int, inverse: bool,
-                   lazy: bool):
-    """Launch ``csrc/ntt_mxu.cu`` on x int64[..., l, N] (CUDA, contiguous)."""
+                   lazy: bool, split: int | None = None):
+    """Launch ``csrc/ntt_mxu.cu`` on x int64[..., l, N] (CUDA, contiguous).
+    ``split`` forces the number of blocks per (limb, polynomial), for tests
+    and measurements; by default :meth:`NTTMxu.split_for` picks it. The
+    kernel makes ``x.device`` current for its launch when it is not, on
+    that device's current stream."""
     if x.dtype != torch.int64:
         raise TypeError(f"ntt_mxu kernel takes int64 residues, got {x.dtype}")
     if x.device != eng.device:
@@ -281,20 +342,18 @@ def four_step_cuda(eng: "NTTMxu", x, limb_lo: int, inverse: bool,
                          f"{eng.consts.shape[0]}-limb table")
     if not x.is_contiguous():
         raise ValueError("ntt_mxu kernel needs a contiguous tensor")
+    rows = x.numel() // eng.n
+    if split is None:
+        split = eng.split_for(rows, inverse)
+    elif split not in SPLITS or split > eng.max_split(inverse):
+        raise ValueError(f"split {split} not in {SPLITS} up to "
+                         f"{eng.max_split(inverse)}")
     out = torch.empty_like(x)
-    blocks = x.numel() // eng.n
-    if blocks == 0:
+    if rows == 0:
         return out
-    if inverse:
-        w1, tw, w2 = eng.w1i_t, eng.ti_t, eng.w2i
-    else:
-        w1, tw, w2 = eng.w1f, eng.tf, eng.w2f_t
-    fn = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), eng.consts.data_ptr(),
-                 w1.data_ptr(), tw.data_ptr(), w2.data_ptr(), eng.logn,
-                 int(inverse), int(lazy), blocks, l, limb_lo, stream)
+    k = eng._binding
+    err = k.fn(x.data_ptr(), out.data_ptr(), k.ptr, inverse | lazy << 1, rows,
+               l, limb_lo, split, torch.cuda.current_stream(k.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntt_mxu kernel launch failed: CUDA error {err}")
     LAUNCHES["inverse" if inverse else "forward"] += 1
@@ -320,7 +379,10 @@ class NTTMxu:
     weight digits int8 — ``w1f`` [L, 4R, 4R], ``w2f_t`` [L, 4C, 4C] (W2f
     transposed so every output's contraction is contiguous), ``w1i_t``
     [L, 4C, 4C] (W1i transposed), ``w2i`` [L, 4R, 4R] — and the twiddles
-    int32 ``tf`` [L, R, C] and ``ti_t`` [L, C, R] (TI transposed).
+    int32 ``tf`` [L, R, C] and ``ti_t`` [L, C, R] (TI transposed). The
+    kernel reads the four weight tables in :func:`mma_fragment_order`:
+    ``w1f_mma``, ``w2f_mma`` (of ``w2f_t``), ``w1i_mma`` (of ``w1i_t``)
+    and ``w2i_mma``, int8 [L, 16 A²].
     """
 
     def __init__(self, n: int, moduli: list[int], psis: list[int], device):
@@ -336,19 +398,54 @@ class NTTMxu:
         packs = [gen_mxu_tables(n, self.rr, self.cc, psi, q)
                  for psi, q in zip(psis, moduli)]
 
-        def stack(key, conv, transpose=False):
+        def stack(key, transpose=False):
             a = np.stack([p[key] for p in packs])
-            if transpose:
-                a = a.transpose(0, 2, 1)
+            return a.transpose(0, 2, 1) if transpose else a
+
+        def dev(a, conv=_i8):
             return conv(a).to(self.device)
 
         self.consts = _i32(gen_consts(moduli)).to(self.device)
-        self.w1f = stack("w1f", _i8)
-        self.w2f_t = stack("w2f", _i8, transpose=True)
-        self.w1i_t = stack("w1i", _i8, transpose=True)
-        self.w2i = stack("w2i", _i8)
-        self.tf = stack("tf", _i32)
-        self.ti_t = stack("ti", _i32, transpose=True)
+        weights = {"w1f": stack("w1f"), "w2f_t": stack("w2f", True),
+                   "w1i_t": stack("w1i", True), "w2i": stack("w2i")}
+        self.w1f, self.w2f_t = dev(weights["w1f"]), dev(weights["w2f_t"])
+        self.w1i_t, self.w2i = dev(weights["w1i_t"]), dev(weights["w2i"])
+        self.w1f_mma = dev(mma_fragment_order(weights["w1f"]))
+        self.w2f_mma = dev(mma_fragment_order(weights["w2f_t"]))
+        self.w1i_mma = dev(mma_fragment_order(weights["w1i_t"]))
+        self.w2i_mma = dev(mma_fragment_order(weights["w2i"]))
+        self.tf = dev(stack("tf"), _i32)
+        self.ti_t = dev(stack("ti", True), _i32)
+        self._split_range = {inv: (self.min_split(inv), self.max_split(inv))
+                             for inv in (False, True)}
+
+    def max_split(self, inverse: bool) -> int:
+        """Most blocks per (limb, polynomial): each needs a 16-row slab of
+        the split dimension (t1 of R forward, j2 of C inverse)."""
+        return min(SPLITS[-1], (self.cc if inverse else self.rr) // 16)
+
+    def min_split(self, inverse: bool) -> int:
+        """Least blocks per (limb, polynomial) at which two blocks share an
+        SM (one block of the unsplit logN = 14 layout fills it alone)."""
+        for s in SPLITS:
+            if 2 * (kernel_smem(self.rr, self.cc, s, inverse)
+                    + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM:
+                return s
+        return SPLITS[-1]
+
+    @functools.cached_property
+    def _binding(self) -> _Binding:
+        return _Binding(self)
+
+    @functools.cached_property
+    def _sm_count(self) -> int:
+        return torch.cuda.get_device_properties(self.device).multi_processor_count
+
+    def split_for(self, rows: int, inverse: bool) -> int:
+        """Blocks per (limb, polynomial) for a call on ``rows`` of them:
+        the least S at which two blocks share an SM and every SM of the
+        card gets a block, at most :meth:`max_split`."""
+        return pick_split(rows, self._sm_count, *self._split_range[inverse])
 
     def _call(self, x, limb_lo: int, inverse: bool, lazy: bool):
         if x.device.type == "cuda":

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of lattigo_tpu_torch, and neither
-chip_smoke.py nor interop.py, imports JAX or the JAX package; and an entry
-point given no device runs on CUDA or raises, never silently on the CPU."""
+"""The port stands alone: no module of lattigo_tpu_torch, and none of
+chip_smoke.py, the kernel benches and interop.py, imports JAX or the JAX
+package; and an entry point given no device runs on CUDA or raises, never
+silently on the CPU."""
 
 import pkgutil
 import subprocess
@@ -29,7 +30,7 @@ def test_port_imports_no_jax():
     assert "lattigo_tpu_torch.ring.ntt_mxu" in mods
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'bench_ntt_u32', 'bench_ntt_mxu']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'lattigo_tpu' or m.startswith('lattigo_tpu.'))\n"

@@ -72,6 +72,51 @@ def test_four_step_kernel_roundtrip_and_offset(cuda, logn):
         assert torch.equal(ring.intt_single(i, yi), xi)
 
 
+_RINGS = {}
+
+
+def _cached_ring(logn, cuda):
+    if logn not in _RINGS:
+        _RINGS[logn] = _ring(logn, cuda)
+    return _RINGS[logn]
+
+
+# (polynomials, limbs): 1, 3, 8, 60 and 208 (limb, polynomial) rows, each
+# within the 10 limbs left above limb offset 5
+_GEOMETRY_ROWS = [(1, 1), (1, 3), (2, 4), (6, 10), (26, 8)]
+_GEOMETRY = [(logn, inverse, split)
+             for logn, rr in ((12, 32), (13, 64), (14, 128))
+             for inverse in (False, True)
+             for split in ntt_mxu.SPLITS
+             if split <= min(8, (128 if inverse else rr) // 16)]
+
+
+@pytest.mark.parametrize("logn, inverse, split", _GEOMETRY)
+def test_four_step_kernel_geometry(cuda, logn, inverse, split):
+    """Every split the kernel has, at row counts from 1 to 208, limb
+    offsets 0 and 5, lazy and not, on inputs whose low word sits at the
+    edges 0, q-1, 2q-1, 4q-1 and 2^32-1 (the kernel reads the low 32 bits
+    and reduces them on entry), bit-equal to the plain version."""
+    ring = _cached_ring(logn, cuda)
+    eng = ring._mxu
+    assert split <= eng.max_split(inverse)
+    g = torch.Generator(device=cuda).manual_seed(400 + logn)
+    for polys, limbs in _GEOMETRY_ROWS:
+        for limb_lo in (0, 5):
+            q = ring.q[limb_lo:limb_lo + limbs]
+            x = torch.randint(0, 1 << 62, (polys, limbs, ring.n),
+                              generator=g, device=cuda)
+            for i, low in enumerate((0 * q, q - 1, 2 * q - 1, 4 * q - 1,
+                                     torch.full_like(q, (1 << 32) - 1))):
+                hi = x[..., i::5] & ~((1 << 32) - 1)
+                x[..., i::5] = hi | low.expand_as(x[..., i::5])
+            for lazy in (False, True):
+                got = ntt_mxu.four_step_cuda(eng, x, limb_lo, inverse, lazy,
+                                             split=split)
+                want = ntt_mxu.four_step_plain(eng, x, limb_lo, inverse, lazy)
+                assert torch.equal(got, want), (polys, limbs, limb_lo, lazy)
+
+
 def test_four_step_kernel_rejects_bad_input(cuda):
     ring = _ring(12, cuda)
     eng = ring._mxu
@@ -85,6 +130,9 @@ def test_four_step_kernel_rejects_bad_input(cuda):
                                False, False)
     with pytest.raises(ValueError):
         ntt_mxu.four_step_cuda(eng, x, 1, False, False)
+    for split in (3, 4):                 # 4: forward at logN 12 allows 2
+        with pytest.raises(ValueError):
+            ntt_mxu.four_step_cuda(eng, x, 0, False, False, split=split)
 
 
 def _u32_ring(logn, cuda, limbs=3):
