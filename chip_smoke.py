@@ -33,7 +33,17 @@ Phases (one line each; any failure exits non-zero before the result):
    against sign(x); launch counts zeroed before and read after, every
    distinct u32 kernel call held against the plain version; one LUT
    profiled, which gives the u32 kernels' device time per launch;
-5. the card's name and power limit as nvidia-smi gives them, the
+5. one batch of 4 requests on CKKS ``ckks_tpu_params(14, 438)`` (N =
+   16384, 13 + 2 primes < 2^29, scale 2^28): the Galois keys of a linear
+   transformation of 16 diagonals scoped to level 11, encode + encrypt,
+   ``rescale(evaluate(rescale(mul_relin(a, b)), lt))`` (the hoisted-BSGS
+   evaluator: n1 = 4, 3 baby and 3 giant rotations), decrypt + decode,
+   every slot held against numpy's M·(a∘b) at a precision floor set from
+   the JAX package's result less a bit; launch counts zeroed before and
+   read after, every distinct four-step call held against the plain
+   version; the step timed and profiled, the peak device memory and the
+   decode's host CRT of one polynomial printed;
+6. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -63,6 +73,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # the butterfly's add and subtract
 U32_OPS_PER_BUTTERFLY = 12
 BR_SLOTS = 16
+CKKS_DIAGS = 16
+# the CKKS step's precision floor (min, avg bits): the JAX package's
+# get_precision_stats on the same step, parameters and inputs (seed 1234,
+# on the CPU: min 13.07, avg 15.53 bits) less one bit
+CKKS_MIN_BITS = (12.07, 14.53)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -372,6 +387,152 @@ def profile_step(step, kernel: str = "ntt_mxu_kernel",
                 f"{k[:50]} {v:.0f} us" for k, v in top)), family
 
 
+def ckks_server():
+    """Phase 5's server on the card: parameters, keys (Galois keys scoped to
+    the transformation's level), the inputs a and b (BATCH requests), the
+    encoded transformation, serve() (encrypt both, the step, decrypt,
+    decode; returns ca, cb and the decoded slots), step(ca, cb), the numpy
+    answer M·(a∘b) and what the set-up measured."""
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import rlwe
+    from lattigo_tpu_torch.circuits import lintrans
+    from lattigo_tpu_torch.presets import ckks_tpu_params
+    from lattigo_tpu_torch.schemes import ckks
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = ckks.Parameters(ckks_tpu_params(LOG_N, LOG_QP))   # on cuda
+    check(params.ring_q.device.type == "cuda", "parameters not on the card")
+    for name, ring in (("Q", params.ring_q), ("P", params.ring_p)):
+        check(ring.ntt_engine == "mxu-cuda", f"ring {name} on {ring.ntt_engine}")
+    slots = params.max_slots
+    rng = np.random.default_rng(SEED)
+
+    def uniform(bound, shape):
+        return rng.uniform(-bound, bound, shape) + 1j * rng.uniform(-bound, bound, shape)
+
+    a, b = uniform(1.0, (BATCH, slots)), uniform(1.0, (BATCH, slots))
+    diags = {k: uniform(1.0 / CKKS_DIAGS, slots) for k in range(CKKS_DIAGS)}
+    level = params.max_level - 1            # the transformation's level
+    encoder = ckks.Encoder(params)
+    lt = lintrans.encode_linear_transformation(
+        params, diags, lintrans.ckks_diag_encoder(params, encoder, params.q_moduli[level]),
+        level_q=level, scale=params.q_moduli[level], slots=slots)
+    els = lt.galois_elements(params)
+    check(lt.n1 == 4 and len(els) == 6, f"n1 {lt.n1} with {len(els)} Galois keys")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kg = rlwe.KeyGenerator(params)
+    sk = kg.gen_secret_key(gen)
+    rlk = kg.gen_relinearization_key(gen, sk)
+    gks = kg.gen_galois_keys(gen, els, sk, levels={g: level for g in els})
+    torch.cuda.synchronize()
+    info = dict(setup_s=time.perf_counter() - t0, n1=lt.n1, galois_keys=len(gks),
+                key_level=level, keys_peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+    ev = ckks.Evaluator(params, rlwe.EvaluationKeySet(rlk, gks))
+    lte = lintrans.LinTransEvaluator(ev)
+    encryptor = rlwe.Encryptor(params, sk)
+    decryptor = rlwe.Decryptor(params, sk)
+    ab = a * b
+    want = np.zeros_like(ab)
+    for k, d in diags.items():
+        want += d * np.roll(ab, -k, axis=-1)
+
+    def step(ca, cb):
+        return ev.rescale(lte.evaluate(ev.rescale(ev.mul_relin(ca, cb)), lt))
+
+    def serve():
+        ca = encryptor.encrypt(gen, encoder.encode(a), batch=(BATCH,))
+        cb = encryptor.encrypt(gen, encoder.encode(b), batch=(BATCH,))
+        return ca, cb, encoder.decode(decryptor.decrypt(step(ca, cb)))
+
+    return params, want, serve, step, info
+
+
+def phase_ckks(rows):
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu
+    from lattigo_tpu_torch.schemes.ckks import get_precision_stats
+
+    params, want, serve, step_of, info = ckks_server()
+    (ca, cb, got), calls, launches = record_calls(ntt_mxu, "four_step_cuda", serve)
+    launch = ntt_mxu.four_step_cuda
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"decoded slots of shape {got.shape}, not all finite")
+    stats = get_precision_stats(want, got)
+    check(stats.min_precision >= CKKS_MIN_BITS[0] and stats.avg_precision >= CKKS_MIN_BITS[1],
+          f"CKKS precision {stats} below the floor min {CKKS_MIN_BITS[0]} / avg "
+          f"{CKKS_MIN_BITS[1]} bits")
+    mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
+    for r in mxu_rows:
+        r["ckks_launches"] = launches["inverse" if r["name"].endswith("inverse") else "forward"]
+        check(r["ckks_launches"] > 0, f"{r['name']} not launched on the CKKS path")
+    for eng, x, limb_lo, inverse, lazy in calls.values():
+        k = launch(eng, x, limb_lo, inverse, lazy)
+        want_k = ntt_mxu.four_step_plain(eng, x, limb_lo, inverse, lazy)
+        for r in mxu_rows:
+            if r["name"].endswith("inverse") == inverse:
+                r["max_abs_err"] = max(r["max_abs_err"], int((k - want_k).abs().max()))
+        check(torch.equal(k, want_k), f"kernel != plain at CKKS call "
+              f"{tuple(x.shape)} limb_lo={limb_lo} inverse={inverse}")
+    shapes = sorted({(tuple(x.shape), lo, "inv" if inv else "fwd",
+                      f"split {eng.split_for(x.numel() // eng.n, inv)}")
+                     for eng, x, lo, inv, _ in calls.values()})
+
+    def step():
+        return step_of(ca, cb)
+
+    ntt_mxu.reset_launches()
+    out = step()
+    torch.cuda.synchronize()
+    step_launches = dict(ntt_mxu.LAUNCHES)
+    for r in mxu_rows:
+        r["ckks_launches_per_step"] = step_launches[
+            "inverse" if r["name"].endswith("inverse") else "forward"]
+    check(out.level == params.max_level - 2, "the step did not end two levels down")
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reps = 10
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / reps * 1e3
+    t2 = time.perf_counter()
+    serve()
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t2) * 1e3
+    # the decode's host CRT: one [12, N] polynomial to Python integers
+    x = torch.randint(0, 1 << 27, (12, params.n), device="cuda")
+    t3 = time.perf_counter()
+    params.ring_q.to_int_coeffs(x, 11)
+    crt_ms = (time.perf_counter() - t3) * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    print(f"phase 5 ckks: CKKS logN={LOG_N} Q={len(params.q_moduli)}x28-bit "
+          f"P={len(params.p_moduli)}x28-bit scale 2^{params.log_default_scale}; rings "
+          f"Q, P on mxu-cuda; set-up {info['setup_s']:.2f} s with "
+          f"{info['galois_keys']} Galois keys at level {info['key_level']} (n1 "
+          f"{info['n1']}, {CKKS_DIAGS} diagonals), peak memory after keys "
+          f"{info['keys_peak_mb']:.1f} MiB; {BATCH} requests of {params.max_slots} "
+          f"slots, rescale(evaluate(rescale(mul_relin(a, b)))) decodes to M(a*b) "
+          f"at {stats} (floor min {CKKS_MIN_BITS[0]} / avg {CKKS_MIN_BITS[1]}); "
+          f"kernel bit-equal to plain at the request's {len(calls)} distinct calls "
+          f"{shapes}; launches on the request {launches}, per step {step_launches}; "
+          f"step {step_ms:.3f} ms per batch of {BATCH}; whole request path "
+          f"{serve_ms:.3f} ms; host CRT of one 12-limb poly {crt_ms:.1f} ms; "
+          f"peak memory of the phase {peak_mb:.1f} MiB")
+    text, family = profile_step(step, host=False)
+    print("phase 5 profile: " + text)
+    for r in mxu_rows:
+        flag = "true>" if r["name"].endswith("inverse") else "false>"
+        us = sum(v for k, (v, _) in family.items() if flag in k)
+        n = sum(c for k, (_, c) in family.items() if flag in k)
+        check(n > 0, f"{r['name']} absent from the CKKS step's profile")
+        r["ckks_device_us_per_launch"] = us / n
+
+
 def u32_bound(eng, shape) -> tuple[float, str]:
     """Least time for one u32 call on x int64[shape]: 16 bytes a
     coefficient (int64 in and out) plus the used limbs' root table and
@@ -599,6 +760,7 @@ def main() -> int:
     phase_u32_kernels(rows)
     phase_server(rows)
     phase_blindrot(rows)
+    phase_ckks(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -4,7 +4,8 @@ The JAX package's objects hold ``uint64`` residues; the port holds the same
 bit patterns as ``torch.int64``. These helpers take the numpy ``uint64``
 arrays (the caller does the ``np.asarray`` on the JAX side) and build the
 port's objects on a chosen device, and turn the port's objects back into
-numpy ``uint64`` arrays. Nothing here imports JAX.
+numpy ``uint64`` arrays. Metadata travels as it is: a CKKS scale stays an
+exact ``Fraction``. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lattigo_tpu_torch.circuits.lintrans import LinearTransformation
 from lattigo_tpu_torch.rgsw.blindrot import BlindRotationKeySet
 from lattigo_tpu_torch.rgsw.rgsw import Ciphertext as RgswCiphertext
 from lattigo_tpu_torch.ring.ringqp import QPPoly
@@ -72,6 +74,29 @@ def galois_key_from_numpy(q, p, gal_el: int, device) -> GaloisKey:
     return GaloisKey(gadget_from_numpy(q, p, device), int(gal_el))
 
 
+def evaluation_key_set_from_numpy(device, rlk=None,
+                                  galois_keys=None) -> EvaluationKeySet:
+    """An evaluation-key set from the (q, p) rows of its relinearization
+    key (or None) and a Galois key set: ``galois_keys`` maps each Galois
+    element to its (q, p) gadget rows, at whatever level each key was
+    made."""
+    return EvaluationKeySet(
+        relinearization_key=(None if rlk is None
+                             else relinearization_key_from_numpy(*rlk, device)),
+        galois_keys={int(g): galois_key_from_numpy(q, p, g, device)
+                     for g, (q, p) in (galois_keys or {}).items()})
+
+
+def linear_transformation_from_numpy(vec, n1: int, level_q: int, scale,
+                                     slots: int, device) -> LinearTransformation:
+    """An encoded linear transformation: ``vec`` maps each diagonal index
+    to the (q, p) residues of its encoded diagonal; the scale (a Fraction
+    for CKKS, an int for BGV) is carried as it is."""
+    return LinearTransformation(
+        vec={int(k): qp_from_numpy(q, p, device) for k, (q, p) in vec.items()},
+        n1=int(n1), level_q=int(level_q), scale=scale, slots=int(slots))
+
+
 def rgsw_from_numpy(c0, c1, device):
     """RGSW ciphertext from its two gadget halves, each a (q, p) pair of
     row arrays as :func:`gadget_from_numpy` takes them."""
@@ -85,6 +110,5 @@ def blind_rotation_keys_from_numpy(brk, galois_keys, device):
     :func:`rgsw_from_numpy` takes them (None where a key is left out);
     ``galois_keys`` maps each Galois element to its (q, p) rows."""
     keys = [None if k is None else rgsw_from_numpy(*k, device) for k in brk]
-    gks = {int(g): galois_key_from_numpy(q, p, g, device)
-           for g, (q, p) in galois_keys.items()}
-    return BlindRotationKeySet(brk=keys, evk=EvaluationKeySet(galois_keys=gks))
+    return BlindRotationKeySet(
+        brk=keys, evk=evaluation_key_set_from_numpy(device, galois_keys=galois_keys))

@@ -1,7 +1,8 @@
-"""Scheme-generic RLWE evaluator: gadget product, relinearization and
-automorphisms.
+"""Scheme-generic RLWE evaluator: gadget product, relinearization,
+automorphisms, hoisted rotations, trace and inner sums.
 
-Counterpart of the key-switching half of :mod:`lattigo_tpu.rlwe.evaluator`.
+Counterpart of :mod:`lattigo_tpu.rlwe.evaluator` (the power-of-two gadget
+product waits for the base-2 gadget).
 The gadget product is a digit-unrolled Montgomery MAC over NTT-domain QP
 tensors, reduced lazily (a flush every ``margin`` terms, with the margin
 derived from 2^63), ending in one ModDown by P. The decomposition is
@@ -124,3 +125,112 @@ class Evaluator:
         d0 = self.params.ring_q.add(d[..., 0, :, :], ct.value[..., 0, :, :], level)
         v = torch.stack([d0, d[..., 1, :, :]], dim=-3)
         return ct.replace(value=auto_mod.automorphism_ntt(v, self.params.n, gal_el))
+
+    def rotate_columns(self, ct: Ciphertext, k: int) -> Ciphertext:
+        return self.automorphism(ct, self.params.galois_element(k))
+
+    def rotate_columns_hoisted(self, ct: Ciphertext,
+                               ks: list[int]) -> dict[int, Ciphertext]:
+        """Rotate by every k in ks from ONE gadget decomposition of c1: the
+        INTT + ModUp + NTT of the decomposition is paid once."""
+        digits = self.decompose_ntt(ct.value[..., 1, :, :], ct.level)
+        return {k: self.automorphism_hoisted(
+            ct, digits, self.params.galois_element(k)) for k in ks}
+
+    # -- trace / inner sum ---------------------------------------------------
+
+    def trace(self, ct: Ciphertext, log_n_start: int) -> Ciphertext:
+        """Trace onto the degree-2^logn sub-ring: multiply by (N/n)^{-1},
+        then the ladder out ← out + σ_{5^{2^i}}(out), plus the order-two
+        element when logn == 0."""
+        p = self.params
+        level = ct.level
+        gap = 1 << (p.log_n - log_n_start - 1)
+        if log_n_start == 0:
+            gap <<= 1
+        if gap <= 1:
+            return ct
+        inv = pow(gap, -1, p.q_big_int(level))
+        out = ct.replace(value=p.ring_q.mul_scalar(ct.value, inv, level))
+        for gal_el in self.galois_elements_for_trace(log_n_start):
+            rot = self.automorphism(out, gal_el)
+            out = out.replace(value=p.ring_q.add(out.value, rot.value, level))
+        return out
+
+    def galois_elements_for_trace(self, log_n_start: int) -> list[int]:
+        """Galois keys :meth:`trace` needs, in the order it applies them."""
+        p = self.params
+        els = [p.galois_element(1 << i) for i in range(log_n_start, p.log_n - 1)]
+        if log_n_start == 0:
+            els.append(p.galois_element_order_two)
+        return els
+
+    def inner_function(self, ct: Ciphertext, batch: int, n: int,
+                       f) -> Ciphertext:
+        """Log-depth rotate-and-combine: the ``f``-fold of rot(ct, i·batch)
+        for i < n. Doubling ladders build the fold over 2^j elements, and
+        each set bit of n adds its ladder rotated past the lower blocks."""
+        acc = None
+        cur = ct          # fold over {rot(ct, i·batch) : i < m}
+        m = 1
+        pos = 0           # Σ of lower set bits (block offset)
+        while m <= n:
+            if n & m:
+                part = cur if pos == 0 else self.rotate_columns(cur, pos * batch)
+                acc = part if acc is None else f(acc, part)
+                pos += m
+            m <<= 1
+            if m <= n:
+                cur = f(cur, self.rotate_columns(cur, (m >> 1) * batch))
+        return acc
+
+    def partial_traces_sum(self, ct: Ciphertext, offset: int,
+                           n: int) -> Ciphertext:
+        """Σ_{i<n} φ_{i·offset}(ct) from ONE gadget decomposition of c1: the
+        hoisted linear-depth alternative to :meth:`inner_sum`."""
+        if offset == 0:
+            raise ValueError("partial_traces_sum: offset must be non-zero")
+        if n == 1:
+            return ct
+        p = self.params
+        level = ct.level
+        digits = self.decompose_ntt(ct.value[..., 1, :, :], level)
+        acc = ct.value
+        for gal_el in self.galois_elements_for_partial_traces_sum(offset, n):
+            rot = self.automorphism_hoisted(ct, digits, gal_el)
+            acc = p.ring_q.add(acc, rot.value, level)
+        return ct.replace(value=acc)
+
+    def galois_elements_for_partial_traces_sum(self, offset: int,
+                                               n: int) -> list[int]:
+        return [self.params.galois_element(i * offset) for i in range(1, n)]
+
+    def inner_sum(self, ct: Ciphertext, batch: int, n: int) -> Ciphertext:
+        """Σ_{i<n} rot(ct, i·batch), log depth, any n."""
+        rq = self.params.ring_q
+
+        def add(a: Ciphertext, b: Ciphertext) -> Ciphertext:
+            return a.replace(value=rq.add(a.value, b.value, a.level))
+
+        return self.inner_function(ct, batch, n, add)
+
+    def replicate(self, ct: Ciphertext, batch: int, n: int) -> Ciphertext:
+        """Replicate each batch block n times leftward (inner_sum with the
+        opposite rotation direction)."""
+        return self.inner_sum(ct, -batch, n)
+
+    def galois_elements_for_inner_sum(self, batch: int, n: int) -> list[int]:
+        """Galois keys :meth:`inner_sum` needs."""
+        p = self.params
+        els = set()
+        m = 1
+        pos = 0
+        while m <= n:
+            if n & m:
+                if pos != 0:
+                    els.add(p.galois_element(pos * batch))
+                pos += m
+            m <<= 1
+            if m <= n:
+                els.add(p.galois_element((m >> 1) * batch))
+        return sorted(els)

@@ -167,20 +167,46 @@ class KeyGenerator:
         return self.gen_galois_keys(gen, [gal_el], sk)[gal_el]
 
     def gen_galois_keys(self, gen: torch.Generator, gal_els: list[int],
-                        sk: SecretKey) -> dict[int, GaloisKey]:
-        """All Galois keys in one batched gadget encryption: the permuted
-        secrets are stacked on a leading axis, one per Galois element."""
+                        sk: SecretKey, chunk: int = 8,
+                        levels: dict[int, int] | None = None
+                        ) -> dict[int, GaloisKey]:
+        """Galois keys in batched gadget encryptions: the permuted secrets
+        of up to ``chunk`` Galois elements are stacked on a leading axis, so
+        ``chunk`` bounds peak device memory (one key at logN 14 on 13 + 2
+        limbs is 27.5 MB).
+
+        ``levels`` (gal_el → level_q) makes LEVEL-SCOPED keys: a key made at
+        level l has ceil((l+1)/|P|) gadget rows of l+1 Q limbs instead of
+        the full chain. A key must be made at (at least) the highest level
+        it is used at; the gadget product slices rows and limbs down for
+        lower levels. Elements left out of ``levels`` get full-chain keys.
+        """
         p = self.params
         if not gal_els:
             return {}
         if p.ring_p is None:
             raise NotImplementedError(
                 "Galois keys need the RNS gadget, which needs a P basis")
+        by_level: dict[int, list[int]] = {}
+        for g in gal_els:
+            lvl = p.max_level if levels is None else levels.get(g, p.max_level)
+            by_level.setdefault(lvl, []).append(g)
+        out: dict[int, GaloisKey] = {}
+        for lvl, els in sorted(by_level.items()):
+            for lo in range(0, len(els), chunk):
+                out.update(self._gen_galois_keys_level(
+                    gen, els[lo:lo + chunk], sk, lvl))
+        return out
+
+    def _gen_galois_keys_level(self, gen: torch.Generator, gal_els: list[int],
+                               sk: SecretKey, level_q: int
+                               ) -> dict[int, GaloisKey]:
+        p = self.params
         idx = torch.stack([auto_mod.ntt_index(p.n, p.galois_element_inverse(g),
                                               p.device) for g in gal_els])
         sk_out = SecretKey(QPPoly(
-            torch.movedim(sk.value.q[:, idx], -2, 0),
+            torch.movedim(sk.value.q[: level_q + 1, idx], -2, 0),
             torch.movedim(sk.value.p[:, idx], -2, 0)))       # [G, L, N]
         gadgets = unstack_gadgets(self.gadget_encrypt(
-            gen, sk.value.q, sk_out, batch=(len(gal_els),)))
+            gen, sk.value.q, sk_out, level_q=level_q, batch=(len(gal_els),)))
         return {g: GaloisKey(gd, g) for g, gd in zip(gal_els, gadgets)}

@@ -1,1 +1,1 @@
-"""Homomorphic schemes (BGV/BFV)."""
+"""Homomorphic schemes (BGV/BFV, CKKS)."""

@@ -1,4 +1,4 @@
-"""Unified BGV/BFV evaluator: add, sub, mul, mul_relin, rescale.
+"""Unified BGV/BFV evaluator: add, sub, mul, mul_relin, rescale, rotations.
 
 Counterpart of the BGV half of :mod:`lattigo_tpu.schemes.bgv.evaluator`.
 Plaintexts are MSB-encoded as m·T^{-1} mod Q:
@@ -9,7 +9,7 @@ Plaintexts are MSB-encoded as m·T^{-1} mod Q:
 * rescale divides by q_l (rounded) with scale ← scale·q_l^{-1} mod T.
 
 All ops broadcast over leading batch axes. BFV scale-invariant tensoring
-and rotations are not ported yet.
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -137,3 +137,20 @@ class Evaluator(RlweEvaluator):
         v = scaling.div_by_last_modulus(p.ring_q, ct.value, level,
                                         ntt_domain=ct.is_ntt, round_div=True)
         return ct.replace(value=v, scale=p.scale_div_q(ct.scale, level))
+
+    # -- rotations ----------------------------------------------------------------
+    # rotate_columns (a cyclic rotation of both slot rows by k) is the RLWE
+    # evaluator's.
+
+    def rotate_rows(self, ct: Ciphertext) -> Ciphertext:
+        """Swap the two slot rows (the order-two Galois element)."""
+        return self.automorphism(ct, self.params.galois_element_order_two)
+
+    def rotate_hoisted(self, ct: Ciphertext,
+                       ks: list[int]) -> dict[int, Ciphertext]:
+        """Column rotations by every k in ks from one shared decomposition."""
+        return self.rotate_columns_hoisted(ct, ks)
+
+    def rotate_and_add(self, ct: Ciphertext, batch: int, n: int) -> Ciphertext:
+        """Σ_{i<n} rot(ct, i·batch), the log-depth ladder of inner_sum."""
+        return self.inner_sum(ct, batch, n)

@@ -1,1 +1,1 @@
-"""Host-side helpers (number theory)."""
+"""Host-side helpers (number theory, double-double arithmetic)."""

@@ -28,6 +28,9 @@ def test_port_imports_no_jax():
     mods = _modules()
     assert "lattigo_tpu_torch.interop" in mods
     assert "lattigo_tpu_torch.ring.ntt_mxu" in mods
+    assert "lattigo_tpu_torch.schemes.ckks" in mods
+    assert "lattigo_tpu_torch.circuits.lintrans" in mods
+    assert "lattigo_tpu_torch.utils.ddarith" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'bench_ntt_u32', 'bench_ntt_mxu']:\n"
@@ -51,3 +54,19 @@ def test_default_device_is_cuda_or_raises():
         with pytest.raises(RuntimeError, match="CUDA"):
             bgv.Parameters(lit)
     assert bgv.Parameters(lit, device="cpu").ring_q.q.device.type == "cpu"
+
+
+def test_ckks_default_device_is_cuda_or_raises():
+    from lattigo_tpu_torch.presets import ckks_tpu_params
+    from lattigo_tpu_torch.schemes import ckks
+    lit = ckks.ParametersLiteral(log_n=10, log_q=(40, 40), log_p=(45,))
+    if torch.cuda.is_available():
+        params = ckks.Parameters(lit)
+        assert params.ring_q.device.type == "cuda"
+        assert params.ring_p.q.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ckks.Parameters(lit)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ckks.Parameters(ckks_tpu_params(12, 218))
+    assert ckks.Parameters(lit, device="cpu").ring_q.q.device.type == "cpu"

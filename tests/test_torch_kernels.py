@@ -222,3 +222,62 @@ def test_u32_kernel_rejects_bad_input(cuda):
     big = NTTFriendlyPrimesGenerator(31, 2048).next_alternating_prime()
     with pytest.raises(ValueError):                 # q >= 2^30
         ntt_pallas.NTTPallas(1024, [big], [psi], cuda)
+
+
+def test_four_step_kernel_on_the_ckks_step(cuda, monkeypatch):
+    """The CKKS slice's step at logN 12 on the card, rescale(evaluate(
+    rescale(mul_relin(a, b)))) with 16 diagonals (n1 = 4), on a batch of 2:
+    every distinct four-step call it makes is held against the plain
+    version on its own input, and the slots decode to M·(a∘b)."""
+    import numpy as np
+    from lattigo_tpu_torch import rlwe
+    from lattigo_tpu_torch.circuits import lintrans
+    from lattigo_tpu_torch.presets import ckks_tpu_params
+    from lattigo_tpu_torch.schemes import ckks
+
+    params = ckks.Parameters(ckks_tpu_params(12, 218), device=cuda)
+    assert params.ring_q.ntt_engine == params.ring_p.ntt_engine == "mxu-cuda"
+    level = params.max_level - 1
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    kg = rlwe.KeyGenerator(params)
+    sk = kg.gen_secret_key(gen)
+    enc = ckks.Encoder(params)
+    rng = np.random.default_rng(13)
+    slots = params.max_slots
+    a, b = (rng.uniform(-1, 1, (2, slots)) + 1j * rng.uniform(-1, 1, (2, slots))
+            for _ in range(2))
+    diags = {k: rng.uniform(-1 / 16, 1 / 16, slots)
+             + 1j * rng.uniform(-1 / 16, 1 / 16, slots) for k in range(16)}
+    lt = lintrans.encode_linear_transformation(
+        params, diags, lintrans.ckks_diag_encoder(params, enc, params.q_moduli[level]),
+        level_q=level, scale=params.q_moduli[level], slots=slots)
+    els = lt.galois_elements(params)
+    ev = ckks.Evaluator(params, rlwe.EvaluationKeySet(
+        kg.gen_relinearization_key(gen, sk),
+        kg.gen_galois_keys(gen, els, sk, levels={g: level for g in els})))
+    encryptor = rlwe.Encryptor(params, sk)
+    ca = encryptor.encrypt(gen, enc.encode(a), batch=(2,))
+    cb = encryptor.encrypt(gen, enc.encode(b), batch=(2,))
+
+    calls = {}
+    launch = ntt_mxu.four_step_cuda
+
+    def recording(eng, x, limb_lo, inverse, lazy, **kw):
+        calls.setdefault((tuple(x.shape), limb_lo, inverse, lazy),
+                         (eng, x.clone(), limb_lo, inverse, lazy))
+        return launch(eng, x, limb_lo, inverse, lazy, **kw)
+
+    monkeypatch.setattr(ntt_mxu, "four_step_cuda", recording)
+    out = ev.rescale(lintrans.LinTransEvaluator(ev).evaluate(
+        ev.rescale(ev.mul_relin(ca, cb)), lt))
+    monkeypatch.undo()
+    assert out.level == level - 1
+    assert {inv for _, _, inv, _ in calls} == {False, True}
+    for eng, x, limb_lo, inverse, lazy in calls.values():
+        assert torch.equal(launch(eng, x, limb_lo, inverse, lazy),
+                           ntt_mxu.four_step_plain(eng, x, limb_lo, inverse, lazy))
+    want = np.zeros_like(a)
+    for k, d in diags.items():
+        want += d * np.roll(a * b, -k, axis=-1)
+    got = enc.decode(rlwe.Decryptor(params, sk).decrypt(out))
+    ckks.verify_test_vectors(want, got, 12.0)
