@@ -43,7 +43,28 @@ Phases (one line each; any failure exits non-zero before the result):
    read after, every distinct four-step call held against the plain
    version; the step timed and profiled, the peak device memory and the
    decode's host CRT of one polynomial printed;
-6. the card's name and power limit as nvidia-smi gives them, the
+6. the multiparty path on BGV ``bgv_tpu_params(14, 438)``: 4 parties,
+   threshold 3, public points 1-4, active set {1, 2, 4}, each party with
+   its own generator on the card. Secret keys Shamir-shared, aggregated and
+   turned into additive shares by the active parties; their collective
+   public key (one round), relinearization key (two rounds, ephemeral
+   keys) and Galois key for rotate_columns(1), every CRP from a seed;
+   4 a and 4 b encrypted under the collective key;
+   ``rotate_columns(rescale(mul_relin(a, b)), 1)``; collective decryption
+   (CKS to 0), a public-key switch to a receiver's key, a collective
+   evaluation key to a fresh committee key applied and decrypted by the
+   new committee, and a BGV refresh of one ciphertext back to the top
+   level, each decoded and checked against numpy's roll of a*b mod T in
+   every slot; then a CKKS refresh at ``ckks_tpu_params(14, 438)`` of a
+   vector encrypted at level 1 (three fresh parties, 40-bit masks) to the
+   top level, decrypted collectively and held at a precision floor set
+   from the JAX package's result less a bit. Launch counts zeroed before
+   and read after, every distinct four-step call held against the plain
+   version; per protocol the ms of gen_share (per party), aggregate and
+   finalize and its four-step launches; the CRPs' host ms; the step and
+   the request timed; peak device memory; the collective relinearization
+   key generation and the request profiled;
+7. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -78,6 +99,15 @@ CKKS_DIAGS = 16
 # get_precision_stats on the same step, parameters and inputs (seed 1234,
 # on the CPU: min 13.07, avg 15.53 bits) less one bit
 CKKS_MIN_BITS = (12.07, 14.53)
+# the multiparty phase: parties, threshold, the active parties' points
+MP_PARTIES, MP_THRESHOLD, MP_ACTIVE = 4, 3, (1, 2, 4)
+# CKKS refresh: 12 bits of statistical security over scale 2^28 gives
+# 40-bit masks and level 1 (get_minimum_level_for_refresh); its precision
+# floor (min, avg bits): the JAX package's refresh on the same parameters,
+# flow, input and CRP seeds (seed 1234, on the CPU: min 12.72, avg 16.04
+# bits; tests/test_torch_sharing.py reference_refresh_precision) less one bit
+MP_REFRESH_LAMBDA = 12
+MP_REFRESH_MIN_BITS = (11.72, 15.04)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -533,6 +563,324 @@ def phase_ckks(rows):
         r["ckks_device_us_per_launch"] = us / n
 
 
+def aggregate(proto, shares):
+    """Fold a list of shares with the protocol's aggregate_shares."""
+    agg = shares[0]
+    for sh in shares[1:]:
+        agg = proto.aggregate_shares(agg, sh)
+    return agg
+
+
+def mp_flow(device, log_n: int, log_qp: int, timed):
+    """Phase 6's main path at ``bgv_tpu_params(log_n, log_qp)`` (and the
+    CKKS refresh at ``ckks_tpu_params(log_n, log_qp)``) on ``device``.
+
+    ``timed(label, fn)`` runs fn() and returns its result (the phase times
+    it and counts its launches under the label). Every BGV result is
+    checked exactly here; returns the parameters, the keys and inputs the
+    phase reuses, and the CKKS refresh's precision stats, which the caller
+    holds at its floor."""
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import multiparty as mp, rlwe
+    from lattigo_tpu_torch.multiparty.sharing import (
+        RefreshProtocol, get_minimum_level_for_refresh,
+    )
+    from lattigo_tpu_torch.presets import bgv_tpu_params, ckks_tpu_params
+    from lattigo_tpu_torch.schemes import bgv, ckks
+    from lattigo_tpu_torch.schemes.ckks import get_precision_stats
+
+    params = bgv.Parameters(bgv_tpu_params(log_n, log_qp), device=device)
+    cparams = ckks.Parameters(ckks_tpu_params(log_n, log_qp), device=device)
+    top = params.max_level
+    gens = [torch.Generator(device=device).manual_seed(SEED + i)
+            for i in range(MP_PARTIES)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 100)   # the server
+    active = [gens[x - 1] for x in MP_ACTIVE]
+    rng = np.random.default_rng(SEED)
+    a = rng.integers(0, params.t, (BATCH, params.n))
+    b = rng.integers(0, params.t, (BATCH, params.n))
+    half = params.n // 2
+    ab = a * b % params.t
+    want = np.concatenate([np.roll(ab[:, :half], -1, axis=-1),
+                           np.roll(ab[:, half:], -1, axis=-1)], axis=-1)
+    kg = rlwe.KeyGenerator(params)
+    encoder = bgv.Encoder(params)
+
+    def each(label, parties, fn):
+        return [timed(label, lambda g=g, x=x: fn(g, x)) for g, x in parties]
+
+    # 1. secret keys, Shamir shares, additive shares of the active set
+    sks = [timed("sk", lambda g=g: kg.gen_secret_key(g)) for g in gens]
+    th = mp.Thresholdizer(params)
+    polys = each("shamir polynomial", zip(gens, sks),
+                 lambda g, sk: th.gen_shamir_polynomial(g, MP_THRESHOLD, sk))
+
+    def shamir_share(x):
+        """Party x's Shamir share: every party's polynomial at x, summed."""
+        acc = th.gen_shamir_secret_share(x, polys[0])
+        for poly in polys[1:]:
+            acc = mp.Thresholdizer.aggregate_shares(
+                params, acc, th.gen_shamir_secret_share(x, poly))
+        return acc
+
+    shamir = [timed("shamir share", lambda x=x: shamir_share(x))
+              for x in range(1, MP_PARTIES + 1)]
+    comb = mp.Combiner(params, MP_THRESHOLD)
+    tsks = [timed("combiner", lambda x=x: comb.gen_additive_share(
+        list(MP_ACTIVE), x, shamir[x - 1])) for x in MP_ACTIVE]
+
+    def protocol(name, proto, shares_of, finalize, keys=None):
+        """One round by the active parties holding ``keys`` (their additive
+        shares by default): gen_share each, aggregate, finalize."""
+        shares = each(f"{name} gen_share", zip(active, keys or tsks), shares_of)
+        agg = timed(f"{name} aggregate", lambda: aggregate(proto, shares))
+        return timed(f"{name} finalize", lambda: finalize(agg))
+
+    # 2. collective keys
+    cpk_p = mp.PublicKeyGenProtocol(params)
+    crp = timed("crp", lambda: cpk_p.sample_crp(b"mp-cpk"))
+    cpk = protocol("cpk", cpk_p, lambda g, s: cpk_p.gen_share(g, s, crp),
+                   lambda agg: cpk_p.finalize(agg, crp))
+    rlk_p = mp.RelinearizationKeyGenProtocol(params)
+    rlk_crps = timed("crp", lambda: rlk_p.sample_crp(b"mp-rlk"))
+
+    def gen_rlk():
+        eph = each("rlk ephemeral", zip(active, tsks), lambda g, s: rlk_p.gen_ephemeral(g))
+        r1 = each("rlk round1 gen_share", zip(active, zip(tsks, eph)),
+                  lambda g, se: rlk_p.gen_share_round1(g, se[0], se[1], rlk_crps))
+        agg1 = timed("rlk round1 aggregate", lambda: aggregate(rlk_p, r1))
+        r2 = each("rlk round2 gen_share", zip(active, zip(tsks, eph)),
+                  lambda g, se: rlk_p.gen_share_round2(g, se[0], se[1], agg1))
+        agg2 = timed("rlk round2 aggregate", lambda: aggregate(rlk_p, r2))
+        return timed("rlk finalize", lambda: rlk_p.finalize(agg1, agg2))
+
+    rlk = gen_rlk()
+    gal = params.galois_element(1)
+    gk_p = mp.GaloisKeyGenProtocol(params)
+    gk_crps = timed("crp", lambda: gk_p.sample_crp(b"mp-gk"))
+    gk = protocol("gk", gk_p, lambda g, s: gk_p.gen_share(g, gal, s, gk_crps),
+                  lambda agg: gk_p.finalize(gal, agg, gk_crps))
+
+    # 3.-5. inputs under the collective key, the step, collective decryption
+    ev = bgv.Evaluator(params, rlwe.EvaluationKeySet(rlk, {gal: gk}))
+    encryptor = rlwe.Encryptor(params, cpk)
+    cks = mp.KeySwitchProtocol(params)
+
+    def encrypt(x):
+        return encryptor.encrypt(gen, encoder.encode(x), batch=(BATCH,))
+
+    def step(ca, cb):
+        return ev.rotate_columns(ev.rescale(ev.mul_relin(ca, cb)), 1)
+
+    def decrypt(ct, keys, name="cks"):
+        """Collective decryption: CKS to 0 by ``keys``, then decode."""
+        agg = aggregate(cks, each(f"{name} gen_share", zip(active, keys),
+                                  lambda g, s: cks.gen_share(g, s, None, ct)))
+        out = timed(f"{name} key_switch", lambda: cks.key_switch(ct, agg))
+        return encoder.decode(rlwe.Plaintext(value=out.value[..., 0, :, :],
+                                             is_ntt=True, scale=out.scale))
+
+    ca = timed("encrypt (pk)", lambda: encrypt(a))
+    cb = timed("encrypt (pk)", lambda: encrypt(b))
+    out = timed("step", lambda: step(ca, cb))
+    check(out.level == top - 1, "the step did not drop a level")
+    check(np.array_equal(decrypt(out, tsks), want), "CKS: slots != roll(a*b mod t)")
+
+    # 6. public-key switch to a receiver's own key
+    rgen = torch.Generator(device=device).manual_seed(SEED + 200)
+    sk_r = kg.gen_secret_key(rgen)
+    pk_r = timed("pk (receiver)", lambda: kg.gen_public_key(rgen, sk_r))
+    pcks = mp.PublicKeySwitchProtocol(params)
+    ct_r = protocol("pcks", pcks, lambda g, s: pcks.gen_share(g, s, pk_r, out),
+                    lambda agg: pcks.key_switch(out, agg))
+    got = encoder.decode(rlwe.Decryptor(params, sk_r).decrypt(ct_r))
+    check(np.array_equal(got, want), "PCKS: slots != roll(a*b mod t)")
+
+    # 7. key rotation: a collective key to a fresh committee key
+    fresh = [timed("sk", lambda g=g: kg.gen_secret_key(g)) for g in active]
+    evk_p = mp.EvaluationKeyGenProtocol(params)
+    evk_crps = timed("crp", lambda: evk_p.sample_crp(b"mp-evk"))
+    shares = each("evk gen_share", zip(active, zip(tsks, fresh)),
+                  lambda g, ss: evk_p.gen_share(g, ss[0], ss[1], evk_crps))
+    agg = timed("evk aggregate", lambda: aggregate(evk_p, shares))
+    evk = timed("evk finalize", lambda: evk_p.finalize(agg, evk_crps))
+    rotated = timed("apply evk", lambda: ev.apply_evaluation_key(out, evk))
+    check(np.array_equal(decrypt(rotated, fresh, "cks (new committee)"), want),
+          "EVK: slots != roll(a*b mod t) under the new committee")
+
+    # 8. BGV refresh of one ciphertext back to the top level
+    ref_p = mp.BGVRefreshProtocol(params)
+    one = out.replace(value=out.value[0])
+    ref_crp = timed("crp", lambda: ref_p.sample_crp(b"mp-bgv-refresh", top))
+    fresh_ct = protocol("bgv refresh", ref_p,
+                        lambda g, s: ref_p.gen_share(g, s, one, ref_crp, top),
+                        lambda agg: ref_p.finalize(one, agg, ref_crp, top))
+    check(fresh_ct.level == top, f"refreshed to level {fresh_ct.level}, not {top}")
+    check(np.array_equal(decrypt(fresh_ct, tsks, "cks (refreshed)"), want[0]),
+          "BGV refresh: slots != roll(a*b mod t)")
+
+    # 9. CKKS refresh: three fresh parties, a vector at the least level
+    ckg = rlwe.KeyGenerator(cparams)
+    csks = [timed("sk", lambda g=g: ckg.gen_secret_key(g)) for g in active]
+    ccpk_p = mp.PublicKeyGenProtocol(cparams)
+    ccrp = timed("crp", lambda: ccpk_p.sample_crp(b"mp-ckks-cpk"))
+    ccpk = protocol("ckks cpk", ccpk_p, lambda g, s: ccpk_p.gen_share(g, s, ccrp),
+                    lambda agg: ccpk_p.finalize(agg, ccrp), csks)
+    level, log_bound, ok = get_minimum_level_for_refresh(
+        MP_REFRESH_LAMBDA, cparams.default_scale_fraction, len(MP_ACTIVE),
+        cparams.q_moduli)
+    check(ok and level == 1 and log_bound == 40,
+          f"refresh level {level}, mask bits {log_bound}")
+    crng = np.random.default_rng(SEED)
+    slots = cparams.max_slots
+    v = crng.uniform(-1, 1, slots) + 1j * crng.uniform(-1, 1, slots)
+    cenc = ckks.Encoder(cparams)
+    ct = rlwe.Encryptor(cparams, ccpk).encrypt(gen, cenc.encode(v, level=level))
+    cref = RefreshProtocol(cparams, log_bound=log_bound)
+    ctop = cparams.max_level
+    s2e_crp = timed("crp", lambda: cref.s2e.sample_crp(b"mp-ckks-refresh", ctop))
+    e2s, s2e = [], []
+    for g, s in zip(active, csks):
+        mask, h = timed("ckks refresh gen_share", lambda g=g, s=s: cref.e2s.gen_share(g, s, ct))
+        e2s.append(h)
+        s2e.append(timed("ckks refresh gen_share",
+                         lambda g=g, s=s, mask=mask: cref.s2e.gen_share(g, s, mask, s2e_crp, ctop)))
+
+    def finalize_refresh():
+        pub = cref.e2s.finalize_public(ct, aggregate(cref.e2s, e2s))
+        return cref.s2e.finalize(aggregate(cref.s2e, s2e), s2e_crp,
+                                 extra_c0=cref.lift_public(pub, level, ctop),
+                                 scale=ct.scale, level=ctop)
+
+    cfresh = timed("ckks refresh finalize", finalize_refresh)
+    check(cfresh.level == ctop, f"CKKS refreshed to level {cfresh.level}, not {ctop}")
+    ccks = mp.KeySwitchProtocol(cparams)
+    cout = protocol("ckks cks", ccks, lambda g, s: ccks.gen_share(g, s, None, cfresh),
+                    lambda agg: ccks.key_switch(cfresh, agg), csks)
+    got = cenc.decode(rlwe.Plaintext(value=cout.value[0], is_ntt=True, scale=cout.scale))
+    check(got.shape == v.shape and bool(np.isfinite(got).all()),
+          f"CKKS refresh decoded to shape {got.shape}, not all finite")
+    return dict(params=params, cparams=cparams, a=a, b=b, want=want, ev=ev,
+                encrypt=encrypt, step=step, decrypt=decrypt, gen_rlk=gen_rlk,
+                tsks=tsks, refresh_level=level, refresh_log_bound=log_bound,
+                ckks_stats=get_precision_stats(v, got))
+
+
+def phase_multiparty(rows):
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu
+
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}                      # label -> [ms, forward, inverse, calls]
+    quiet = [False]
+
+    def timed(label, fn):
+        if quiet[0]:
+            return fn()
+        torch.cuda.synchronize()
+        f0, i0 = ntt_mxu.LAUNCHES["forward"], ntt_mxu.LAUNCHES["inverse"]
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        st = stats.setdefault(label, [0.0, 0, 0, 0])
+        st[0] += (time.perf_counter() - t0) * 1e3
+        st[1] += ntt_mxu.LAUNCHES["forward"] - f0
+        st[2] += ntt_mxu.LAUNCHES["inverse"] - i0
+        st[3] += 1
+        return out
+
+    t0 = time.perf_counter()
+    res, calls, launches = record_calls(
+        ntt_mxu, "four_step_cuda", lambda: mp_flow("cuda", LOG_N, LOG_QP, timed))
+    run_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    quiet[0] = True                 # timed() adds nothing from here on
+    params = res["params"]
+    for name, ring in (("Q", params.ring_q), ("P", params.ring_p), ("T", params.ring_t),
+                       ("CKKS Q", res["cparams"].ring_q), ("CKKS P", res["cparams"].ring_p)):
+        check(ring.ntt_engine == "mxu-cuda", f"ring {name} on {ring.ntt_engine}")
+    cst = res["ckks_stats"]
+    check(cst.min_precision >= MP_REFRESH_MIN_BITS[0]
+          and cst.avg_precision >= MP_REFRESH_MIN_BITS[1],
+          f"CKKS refresh precision {cst} below the floor min {MP_REFRESH_MIN_BITS[0]} "
+          f"/ avg {MP_REFRESH_MIN_BITS[1]} bits")
+    mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
+    for r in mxu_rows:
+        r["mp_launches"] = launches["inverse" if r["name"].endswith("inverse") else "forward"]
+        check(r["mp_launches"] > 0, f"{r['name']} not launched on the multiparty path")
+    launch = ntt_mxu.four_step_cuda
+    for eng, x, limb_lo, inverse, lazy in calls.values():
+        k = launch(eng, x, limb_lo, inverse, lazy)
+        want_k = ntt_mxu.four_step_plain(eng, x, limb_lo, inverse, lazy)
+        for r in mxu_rows:
+            if r["name"].endswith("inverse") == inverse:
+                r["max_abs_err"] = max(r["max_abs_err"], int((k - want_k).abs().max()))
+        check(torch.equal(k, want_k), f"kernel != plain at multiparty call "
+              f"{tuple(x.shape)} limb_lo={limb_lo} inverse={inverse}")
+    shapes = sorted({(tuple(x.shape), lo, "inv" if inv else "fwd")
+                     for _, x, lo, inv, _ in calls.values()})
+    crp_ms = stats["crp"][0]
+
+    # the step and the request, after the recorded run
+    step, encrypt, decrypt = res["step"], res["encrypt"], res["decrypt"]
+    ca, cb = encrypt(res["a"]), encrypt(res["b"])
+    for _ in range(3):
+        step(ca, cb)
+    torch.cuda.synchronize()
+    reps = 10
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        step(ca, cb)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / reps * 1e3
+
+    def request():
+        return decrypt(step(encrypt(res["a"]), encrypt(res["b"])), res["tsks"])
+
+    t2 = time.perf_counter()
+    got = request()
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t2) * 1e3
+    check(np.array_equal(got, res["want"]), "request: slots != roll(a*b mod t)")
+
+    def fmt(label):
+        ms, f, i, n = stats[label]
+        return f"{label} {ms / n:.2f} ms" + (f" x{n}" if n > 1 else "") + (
+            f" [{f}/{i}]" if f or i else "")
+
+    print(f"phase 6 multiparty: BGV logN={LOG_N} Q={len(params.q_moduli)}x28-bit "
+          f"P={len(params.p_moduli)}x28-bit T={params.t}; {MP_PARTIES} parties, "
+          f"threshold {MP_THRESHOLD}, active {list(MP_ACTIVE)}; collective pk, rlk "
+          f"(2 rounds), gk; {BATCH} requests rotate_columns(rescale(mul_relin(a, b)), "
+          f"1) decode to roll(a*b mod T) in every slot after CKS, after PCKS to a "
+          f"receiver's key, after a collective EVK to a fresh committee (then its "
+          f"CKS) and, for one ciphertext, after BGV refresh to level "
+          f"{params.max_level}; CKKS refresh from level {res['refresh_level']} to "
+          f"{res['cparams'].max_level} with {res['refresh_log_bound']}-bit masks at "
+          f"{cst} (floor min {MP_REFRESH_MIN_BITS[0]} / avg {MP_REFRESH_MIN_BITS[1]}); "
+          f"the run {run_s:.2f} s; kernel bit-equal to plain at the run's "
+          f"{len(calls)} distinct calls; launches on the run {launches}; CRPs "
+          f"{crp_ms:.1f} ms on the host in {stats['crp'][3]} samplings; step "
+          f"{step_ms:.3f} ms per batch of {BATCH}; request (encrypt under the "
+          f"collective key, step, CKS, decode) {request_ms:.3f} ms; peak memory of "
+          f"the run {peak_mb:.1f} MiB")
+    print("phase 6 protocols (mean ms per call [four-step forward/inverse "
+          "launches in sum]): " + "; ".join(fmt(k) for k in stats))
+    print(f"phase 6 four-step shapes: {shapes}")
+    text, _ = profile_step(res["gen_rlk"], host=False)
+    print("phase 6 profile (collective rlk, 3 parties, 2 rounds): " + text)
+    text, family = profile_step(request, host=False)
+    print("phase 6 profile (request): " + text)
+    for r in mxu_rows:
+        flag = "true>" if r["name"].endswith("inverse") else "false>"
+        us = sum(v for k, (v, _) in family.items() if flag in k)
+        n = sum(c for k, (_, c) in family.items() if flag in k)
+        check(n > 0, f"{r['name']} absent from the multiparty request's profile")
+        r["mp_device_us_per_launch"] = us / n
+
+
 def u32_bound(eng, shape) -> tuple[float, str]:
     """Least time for one u32 call on x int64[shape]: 16 bytes a
     coefficient (int64 in and out) plus the used limbs' root table and
@@ -761,6 +1109,7 @@ def main() -> int:
     phase_server(rows)
     phase_blindrot(rows)
     phase_ckks(rows)
+    phase_multiparty(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

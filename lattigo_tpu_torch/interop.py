@@ -14,13 +14,14 @@ import numpy as np
 import torch
 
 from lattigo_tpu_torch.circuits.lintrans import LinearTransformation
+from lattigo_tpu_torch.multiparty.threshold import ShamirPolynomial
 from lattigo_tpu_torch.rgsw.blindrot import BlindRotationKeySet
 from lattigo_tpu_torch.rgsw.rgsw import Ciphertext as RgswCiphertext
 from lattigo_tpu_torch.ring.ringqp import QPPoly
 from lattigo_tpu_torch.rlwe.elements import Ciphertext, Plaintext
 from lattigo_tpu_torch.rlwe.keys import (
-    EvaluationKeySet, GadgetCiphertext, GaloisKey, RelinearizationKey,
-    SecretKey,
+    CompressedGadgetCiphertext, EvaluationKey, EvaluationKeySet,
+    GadgetCiphertext, GaloisKey, PublicKey, RelinearizationKey, SecretKey,
 )
 
 
@@ -112,3 +113,44 @@ def blind_rotation_keys_from_numpy(brk, galois_keys, device):
     keys = [None if k is None else rgsw_from_numpy(*k, device) for k in brk]
     return BlindRotationKeySet(
         brk=keys, evk=evaluation_key_set_from_numpy(device, galois_keys=galois_keys))
+
+
+def public_key_from_numpy(q, p, device) -> PublicKey:
+    """Public key from its QP parts: q [2, LQ, N], p [2, LP, N]."""
+    return PublicKey(qp_from_numpy(q, p, device))
+
+
+def evaluation_key_from_numpy(q, p, device) -> EvaluationKey:
+    """Evaluation key from its gadget rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]."""
+    return EvaluationKey(gadget_from_numpy(q, p, device))
+
+
+def compressed_gadget_from_numpy(q, p, seed: bytes, device) -> CompressedGadgetCiphertext:
+    """Compressed gadget ciphertext from its c0 rows (q [beta, LQ, N],
+    p [beta, LP, N]) and its seed."""
+    return CompressedGadgetCiphertext(qp_from_numpy(q, p, device), bytes(seed))
+
+
+def shamir_polynomial_from_numpy(coeffs, device) -> ShamirPolynomial:
+    """Shamir polynomial from its coefficients, each a (q, p) pair."""
+    return ShamirPolynomial([qp_from_numpy(q, p, device) for q, p in coeffs])
+
+
+def share_from_numpy(share, device):
+    """A protocol share (a residue array, a QPPoly holding numpy arrays, or
+    a list / tuple of them, nested) with every array moved to ``device`` as
+    int64 tensors; the structure is kept."""
+    if isinstance(share, QPPoly):
+        return qp_from_numpy(share.q, share.p, device)
+    if isinstance(share, (list, tuple)):
+        return type(share)(share_from_numpy(x, device) for x in share)
+    return to_torch(share, device)
+
+
+def share_to_numpy(share):
+    """The inverse of :func:`share_from_numpy`: tensors to numpy uint64."""
+    if isinstance(share, QPPoly):
+        return QPPoly(*qp_to_numpy(share))
+    if isinstance(share, (list, tuple)):
+        return type(share)(share_to_numpy(x) for x in share)
+    return to_numpy(share)

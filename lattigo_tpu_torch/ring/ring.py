@@ -183,6 +183,11 @@ class Ring:
 
     # -- polynomial constructors --------------------------------------------
 
+    def zero(self, level: int | None = None, batch: tuple[int, ...] = ()):
+        """The zero polynomial int64[*batch, level+1, N]."""
+        return torch.zeros(batch + (self._lvl(level) + 1, self.n),
+                           dtype=torch.int64, device=self.device)
+
     def from_int_coeffs(self, coeffs, level: int | None = None):
         """Lift signed/unsigned Python-int coefficients into RNS residues,
         int64[level+1, N] on the ring's device."""

@@ -61,6 +61,12 @@ class RingQP:
         return self._map(lambda x, y: self.ring_q.mul_mont(x, y, level_q),
                          lambda x, y: self.ring_p.mul_mont(x, y), a, b)
 
+    def mul_scalar(self, a: QPPoly, scalar: int,
+                   level_q: int | None = None) -> QPPoly:
+        """Multiply both parts by a host integer (reduced per modulus)."""
+        return self._map(lambda x: self.ring_q.mul_scalar(x, scalar, level_q),
+                         lambda x: self.ring_p.mul_scalar(x, scalar), a)
+
     def ntt(self, a: QPPoly, level_q: int | None = None, lazy: bool = False) -> QPPoly:
         return self._map(lambda x: self.ring_q.ntt(x, level_q, lazy=lazy),
                          lambda x: self.ring_p.ntt(x, lazy=lazy), a)
@@ -98,6 +104,11 @@ class RingQP:
 
     def at_level(self, a: QPPoly, level_q: int) -> QPPoly:
         return QPPoly(a.q[..., : level_q + 1, :], a.p)
+
+    def zero(self, level_q: int | None = None,
+             batch: tuple[int, ...] = ()) -> QPPoly:
+        p = None if self.ring_p is None else self.ring_p.zero(batch=batch)
+        return QPPoly(self.ring_q.zero(level_q, batch), p)
 
 
 def stack(polys: list[QPPoly], dim: int = 0) -> QPPoly:

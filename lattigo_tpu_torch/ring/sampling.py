@@ -14,12 +14,18 @@ distributions are the same:
 
 Small signed samples are drawn once per coefficient and lifted into every
 RNS limb.
+
+:class:`KeyedPRNG` is the one deterministic source: blake2b in counter mode
+on the host, the same stream as the JAX package's, for common reference
+polynomials and seeded (compressed) ciphertexts.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from lattigo_tpu_torch.ring import modops
@@ -103,3 +109,42 @@ def uniform(gen: torch.Generator, ring, level: int | None = None,
         modops.mform(modops.bred_add(hi, q, bhi), q, bhi, blo),
         modops.bred_add(lo, q, bhi), q)
 
+
+class KeyedPRNG:
+    """Deterministic stream: 64-byte blake2b(counter) blocks keyed by
+    ``key[:64]``, the counter an 8-byte little-endian word, read as
+    little-endian u64 words; a read takes whole blocks (the tail of the
+    last one is dropped) and the counter carries across reads.
+
+    Bit for bit the stream of :class:`lattigo_tpu.ring.sampling.KeyedPRNG`,
+    so every party that shares the seed derives the same polynomials.
+    """
+
+    def __init__(self, key: bytes = b""):
+        self.key = bytes(key)
+        self.counter = 0
+        self._base = hashlib.blake2b(key=self.key[:64])
+
+    def read_u64(self, count: int) -> np.ndarray:
+        """The next ``count`` words, uint64[count]."""
+        blocks = -(-count // 8)
+        out = []
+        for c in range(self.counter, self.counter + blocks):
+            h = self._base.copy()
+            h.update(c.to_bytes(8, "little"))
+            out.append(h.digest())
+        self.counter += blocks
+        return np.frombuffer(b"".join(out), dtype="<u8")[:count].astype(np.uint64)
+
+    def uniform_poly(self, ring, level: int | None = None) -> torch.Tensor:
+        """Uniform int64[level+1, N] on the ring's device: per limb N words
+        hi then N words lo, reduced as ((hi << 64) | lo) mod q_i."""
+        l = (ring.max_level if level is None else level) + 1
+        words = np.stack([np.stack([self.read_u64(ring.n), self.read_u64(ring.n)])
+                          for _ in range(l)])                     # [l, 2, N]
+        w = torch.from_numpy(words.view(np.int64)).to(ring.device)
+        q, _, bhi, blo = ring.tables(level)
+        # (hi·2^64 + lo) mod q  =  MForm(hi mod q) + (lo mod q)
+        return modops.add_mod(
+            modops.mform(modops.bred_add(w[:, 0], q, bhi), q, bhi, blo),
+            modops.bred_add(w[:, 1], q, bhi), q)

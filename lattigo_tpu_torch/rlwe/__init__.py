@@ -1,5 +1,6 @@
-"""Scheme-generic RLWE core: parameters, ciphertexts, keys (incl. Galois
-keys), sk encryption, the gadget-product key switch and automorphisms."""
+"""Scheme-generic RLWE core: parameters, ciphertexts, keys (secret, public,
+evaluation, relinearization, Galois; compressed gadgets), sk and pk
+encryption, the gadget-product key switch and automorphisms."""
 
 from lattigo_tpu_torch.rlwe.params import (
     Parameters, ParametersLiteral,
@@ -7,8 +8,9 @@ from lattigo_tpu_torch.rlwe.params import (
 )
 from lattigo_tpu_torch.rlwe.elements import Ciphertext, Plaintext, ciphertext_from_polys
 from lattigo_tpu_torch.rlwe.keys import (
-    SecretKey, GadgetCiphertext, RelinearizationKey, GaloisKey, KeyGenerator,
-    EvaluationKeySet,
+    SecretKey, PublicKey, GadgetCiphertext, CompressedGadgetCiphertext,
+    EvaluationKey, RelinearizationKey, GaloisKey, KeyGenerator,
+    EvaluationKeySet, compress_gadget,
 )
 from lattigo_tpu_torch.rlwe.errors import MissingGaloisKeyError, MissingKeyError
 from lattigo_tpu_torch.rlwe.encryption import Encryptor, Decryptor, add_plaintext
@@ -18,6 +20,7 @@ __all__ = [
     "Parameters", "ParametersLiteral",
     "DiscreteGaussian", "Ternary", "Uniform", "DEFAULT_XE", "DEFAULT_XS",
     "Ciphertext", "Plaintext", "ciphertext_from_polys",
-    "SecretKey", "GadgetCiphertext", "RelinearizationKey", "GaloisKey",
+    "SecretKey", "PublicKey", "GadgetCiphertext", "CompressedGadgetCiphertext",
+    "EvaluationKey", "compress_gadget", "RelinearizationKey", "GaloisKey",
     "KeyGenerator", "EvaluationKeySet", "MissingGaloisKeyError", "MissingKeyError", "Encryptor", "Decryptor", "add_plaintext", "Evaluator",
 ]

@@ -1,7 +1,8 @@
 """Key material containers + key generation.
 
-Counterpart of :mod:`lattigo_tpu.rlwe.keys` (secret keys, RNS gadget
-ciphertexts, relinearization and Galois keys). Key polynomials live in the
+Counterpart of :mod:`lattigo_tpu.rlwe.keys` (secret and public keys, RNS
+gadget ciphertexts and their seeded, compressed form, evaluation,
+relinearization and Galois keys). Key polynomials live in the
 NTT + Montgomery domain over R_QP, so every key-switch MAC is one
 ``mred_lazy``. Randomness comes from an explicit ``torch.Generator``.
 
@@ -39,6 +40,14 @@ class SecretKey:
 
 
 @dataclass
+class PublicKey:
+    """(p0, p1) = (-a·s + e, a) ∈ R_QP², NTT + Montgomery; value.q is
+    int64[2, LQ, N] (leading axis: the two components)."""
+
+    value: QPPoly
+
+
+@dataclass
 class GadgetCiphertext:
     """Gadget-RLWE encryption: value.q int64[beta, 2, LQ, N] (+ P part).
 
@@ -54,6 +63,59 @@ def unstack_gadgets(g: GadgetCiphertext) -> list[GadgetCiphertext]:
     p = g.value.p
     return [GadgetCiphertext(QPPoly(g.value.q[i], None if p is None else p[i]))
             for i in range(g.value.q.shape[0])]
+
+
+@dataclass
+class CompressedGadgetCiphertext:
+    """Seeded gadget ciphertext: the c0 rows (q [beta, LQ, N], NTT +
+    Montgomery) and the seed from which :meth:`expand` re-derives the
+    uniform c1 rows, half the key material on the wire."""
+
+    c0: QPPoly
+    seed: bytes = b""
+
+    def expand(self, params: Parameters) -> GadgetCiphertext:
+        level_q = self.c0.q.shape[-2] - 1
+        beta = self.c0.q.shape[-3]
+        c1 = _seeded_gadget_c1(params, self.seed, beta, level_q)
+        rows = [qp_stack([QPPoly(self.c0.q[..., d, :, :],
+                                 None if self.c0.p is None else self.c0.p[..., d, :, :]),
+                          c1[d]]) for d in range(beta)]
+        return GadgetCiphertext(qp_stack(rows))
+
+
+def compress_gadget(gadget: GadgetCiphertext,
+                    seed: bytes) -> CompressedGadgetCiphertext:
+    """Strip the seed-derived c1 rows of a gadget ciphertext made with
+    ``gadget_encrypt(..., seed=seed)``."""
+    p = gadget.value.p
+    return CompressedGadgetCiphertext(
+        c0=QPPoly(gadget.value.q[..., 0, :, :], None if p is None else p[..., 0, :, :]),
+        seed=seed)
+
+
+def keyed_uniform_qp(params: Parameters, seed: bytes, count: int,
+                     level_q: int | None = None) -> list[QPPoly]:
+    """``count`` uniform R_QP polynomials (NTT domain, not M-form) from one
+    KeyedPRNG stream: each its Q part, then its P part."""
+    prng = sampling.KeyedPRNG(seed)
+    return [QPPoly(prng.uniform_poly(params.ring_q, level_q),
+                   None if params.ring_p is None else prng.uniform_poly(params.ring_p))
+            for _ in range(count)]
+
+
+def _seeded_gadget_c1(params: Parameters, seed: bytes, beta: int,
+                      level_q: int) -> list[QPPoly]:
+    """The beta uniform NTT + Montgomery QP rows derived from a seed."""
+    return [params.ring_qp.mform(x, level_q)
+            for x in keyed_uniform_qp(params, seed, beta, level_q)]
+
+
+@dataclass
+class EvaluationKey:
+    """Key-switching key sk_in → sk_out."""
+
+    gadget: GadgetCiphertext
 
 
 @dataclass
@@ -99,6 +161,14 @@ class KeyGenerator:
         rqp = self.params.ring_qp
         return SecretKey(rqp.mform(rqp.ntt(rqp.lift_signed(x))))
 
+    def gen_public_key(self, gen: torch.Generator, sk: SecretKey) -> PublicKey:
+        """(-a·s + e, a) with a uniform (NTT domain), both M-form."""
+        rqp = self.params.ring_qp
+        a = rqp.uniform(gen)
+        e = rqp.ntt(rqp.sample_signed(gen, self.params.xe))
+        p0 = rqp.sub(e, rqp.mul_mont(a, sk.value))
+        return PublicKey(qp_stack([rqp.mform(p0), rqp.mform(a)]))
+
     def _gadget_scalars(self, level_q: int) -> torch.Tensor:
         """MForm(P mod q_j) per Q row, int64[level_q+1, 1]."""
         p = self.params
@@ -106,15 +176,31 @@ class KeyGenerator:
         return u64_tensor([_mform_int(P % q, q) for q in p.q_moduli[: level_q + 1]],
                           p.device, (level_q + 1, 1))
 
+    def _add_gadget_term(self, x: QPPoly, m_q, d: int, gfac) -> QPPoly:
+        """x + m·g_d on digit d's own Q rows (M-form operands, M-form sum);
+        ``gfac`` is :meth:`_gadget_scalars` at x's level."""
+        rq = self.params.ring_q
+        alpha = len(self.params.p_moduli)
+        lo, hi = d * alpha, min((d + 1) * alpha, x.q.shape[-2])
+        term = modops.mred(m_q[..., lo:hi, :], gfac[lo:hi], rq.q[lo:hi],
+                           rq.qinv[lo:hi], rq.small)
+        q = x.q.clone()
+        q[..., lo:hi, :] = modops.add_mod(q[..., lo:hi, :], term, rq.q[lo:hi])
+        return QPPoly(q, x.p)
+
     def gadget_encrypt(self, gen: torch.Generator, m_q, sk_out: SecretKey,
                        level_q: int | None = None, row: int = 0,
-                       batch: tuple[int, ...] = ()) -> GadgetCiphertext:
+                       batch: tuple[int, ...] = (),
+                       seed: bytes | None = None) -> GadgetCiphertext:
         """Gadget-encrypt m (Q part, NTT + Montgomery, int64[..., lq+1, N]).
 
         ``row`` selects the component that carries m·g: 0 (evaluation keys)
         or 1 (the RGSW half with rows (−a·s + e, a + m·g)). With ``batch``
         every draw carries those leading axes; m_q and sk_out broadcast
-        against them.
+        against them. With ``seed`` the uniform c1 rows come from the
+        :class:`~lattigo_tpu_torch.ring.sampling.KeyedPRNG`, so the result
+        ships compressed (:func:`compress_gadget`); it needs ``row == 0``
+        and no batch.
         """
         p = self.params
         if p.ring_p is None:
@@ -122,34 +208,39 @@ class KeyGenerator:
                 "RNS gadget encryption requires an auxiliary P basis")
         if row not in (0, 1):
             raise ValueError(f"row must be 0 or 1, got {row}")
+        if seed is not None and (row != 0 or batch):
+            raise ValueError("a seeded c1 needs row == 0 and no batch")
         level_q = p.max_level if level_q is None else level_q
         alpha = len(p.p_moduli)
         lq = level_q + 1
         beta = -(-lq // alpha)
         gfac = self._gadget_scalars(level_q)
         rqp = p.ring_qp
-        rq = p.ring_q
         sk_l = rqp.at_level(sk_out.value, level_q)
+        c1_seeded = (None if seed is None
+                     else _seeded_gadget_c1(p, seed, beta, level_q))
         rows = []
         for d in range(beta):
-            a = rqp.uniform(gen, level_q, batch)
-            c1 = rqp.mform(a, level_q)
+            if c1_seeded is None:
+                a = rqp.uniform(gen, level_q, batch)
+                c1 = rqp.mform(a, level_q)
+            else:
+                c1 = c1_seeded[d]           # M-form; its plain form for a·s
+                a = rqp.imform(c1, level_q)
             a_s = rqp.mul_mont(a, sk_l, level_q)
             e = rqp.ntt(rqp.sample_signed(gen, p.xe, level_q, batch), level_q)
             c0 = rqp.mform(rqp.sub(e, a_s, level_q), level_q)
-            lo, hi = d * alpha, min((d + 1) * alpha, lq)
-            # m·g_d on the digit's own rows (both operands M-form → M-form)
-            term = modops.mred(m_q[..., lo:hi, :], gfac[lo:hi], rq.q[lo:hi],
-                               rq.qinv[lo:hi], rq.small)
-            tgt = (c0 if row == 0 else c1).q.clone()
-            tgt[..., lo:hi, :] = modops.add_mod(tgt[..., lo:hi, :], term,
-                                                rq.q[lo:hi])
             if row == 0:
-                c0 = QPPoly(tgt, c0.p)
+                c0 = self._add_gadget_term(c0, m_q, d, gfac)
             else:
-                c1 = QPPoly(tgt, c1.p)
+                c1 = self._add_gadget_term(c1, m_q, d, gfac)
             rows.append(qp_stack([c0, c1], dim=-3))
         return GadgetCiphertext(qp_stack(rows, dim=-4))
+
+    def gen_evaluation_key(self, gen: torch.Generator, sk_in: SecretKey,
+                           sk_out: SecretKey) -> EvaluationKey:
+        """Key re-encrypting from sk_in to sk_out."""
+        return EvaluationKey(self.gadget_encrypt(gen, sk_in.value.q, sk_out))
 
     def gen_relinearization_key(self, gen: torch.Generator,
                                 sk: SecretKey) -> RelinearizationKey:

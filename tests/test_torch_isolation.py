@@ -31,6 +31,9 @@ def test_port_imports_no_jax():
     assert "lattigo_tpu_torch.schemes.ckks" in mods
     assert "lattigo_tpu_torch.circuits.lintrans" in mods
     assert "lattigo_tpu_torch.utils.ddarith" in mods
+    for m in ("", ".protocols", ".threshold", ".additive_shares", ".sharing",
+              ".sharing_bgv"):
+        assert "lattigo_tpu_torch.multiparty" + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'bench_ntt_u32', 'bench_ntt_mxu']:\n"

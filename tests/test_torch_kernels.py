@@ -281,3 +281,67 @@ def test_four_step_kernel_on_the_ckks_step(cuda, monkeypatch):
         want += d * np.roll(a * b, -k, axis=-1)
     got = enc.decode(rlwe.Decryptor(params, sk).decrypt(out))
     ckks.verify_test_vectors(want, got, 12.0)
+
+
+def test_four_step_kernel_on_the_multiparty_path(cuda, monkeypatch):
+    """The multiparty path at logN 14 on the card, bgv_tpu_params(14, 438)
+    with 3 parties: collective public key, two-round relinearization key,
+    an encryption under the collective key, mul_relin + rescale and the
+    collective decryption (CKS to 0): every distinct four-step call it
+    makes is held against the plain version on its own input, and the
+    slots decode to a*b mod T."""
+    import numpy as np
+    from lattigo_tpu_torch import multiparty as mp, rlwe
+    from lattigo_tpu_torch.presets import bgv_tpu_params
+    from lattigo_tpu_torch.schemes import bgv
+
+    params = bgv.Parameters(bgv_tpu_params(14, 438), device=cuda)
+    assert {params.ring_q.ntt_engine, params.ring_p.ntt_engine,
+            params.ring_t.ntt_engine} == {"mxu-cuda"}
+    gens = [torch.Generator(device=cuda).manual_seed(20 + i) for i in range(3)]
+    kg = rlwe.KeyGenerator(params)
+    enc = bgv.Encoder(params)
+    rng = np.random.default_rng(20)
+    a, b = (rng.integers(0, params.t, (2, params.n)) for _ in range(2))
+
+    def agg(proto, shares):
+        out = shares[0]
+        for s in shares[1:]:
+            out = proto.aggregate_shares(out, s)
+        return out
+
+    calls = {}
+    launch = ntt_mxu.four_step_cuda
+
+    def recording(eng, x, limb_lo, inverse, lazy, **kw):
+        calls.setdefault((id(eng), tuple(x.shape), limb_lo, inverse, lazy),
+                         (eng, x.clone(), limb_lo, inverse, lazy))
+        return launch(eng, x, limb_lo, inverse, lazy, **kw)
+
+    monkeypatch.setattr(ntt_mxu, "four_step_cuda", recording)
+    sks = [kg.gen_secret_key(g) for g in gens]
+    cpk_p = mp.PublicKeyGenProtocol(params)
+    crp = cpk_p.sample_crp(b"card-cpk")
+    cpk = cpk_p.finalize(agg(cpk_p, [cpk_p.gen_share(g, s, crp)
+                                     for g, s in zip(gens, sks)]), crp)
+    rlk_p = mp.RelinearizationKeyGenProtocol(params)
+    crps = rlk_p.sample_crp(b"card-rlk")
+    eph = [rlk_p.gen_ephemeral(g) for g in gens]
+    agg1 = agg(rlk_p, [rlk_p.gen_share_round1(g, s, u, crps)
+                       for g, s, u in zip(gens, sks, eph)])
+    agg2 = agg(rlk_p, [rlk_p.gen_share_round2(g, s, u, agg1)
+                       for g, s, u in zip(gens, sks, eph)])
+    ev = bgv.Evaluator(params, rlwe.EvaluationKeySet(rlk_p.finalize(agg1, agg2)))
+    encryptor = rlwe.Encryptor(params, cpk)
+    out = ev.rescale(ev.mul_relin(encryptor.encrypt(gens[0], enc.encode(a), batch=(2,)),
+                                  encryptor.encrypt(gens[0], enc.encode(b), batch=(2,))))
+    cks = mp.KeySwitchProtocol(params)
+    res = cks.key_switch(out, agg(cks, [cks.gen_share(g, s, None, out)
+                                        for g, s in zip(gens, sks)]))
+    got = enc.decode(rlwe.Plaintext(value=res.value[..., 0, :, :], scale=res.scale))
+    monkeypatch.undo()
+    assert {inv for _, _, _, inv, _ in calls} == {False, True}
+    for eng, x, limb_lo, inverse, lazy in calls.values():
+        assert torch.equal(launch(eng, x, limb_lo, inverse, lazy),
+                           ntt_mxu.four_step_plain(eng, x, limb_lo, inverse, lazy))
+    np.testing.assert_array_equal(got, a * b % params.t)
