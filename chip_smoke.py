@@ -64,7 +64,25 @@ Phases (one line each; any failure exits non-zero before the result):
    finalize and its four-step launches; the CRPs' host ms; the step and
    the request timed; peak device memory; the collective relinearization
    key generation and the request profiled;
-7. the card's name and power limit as nvidia-smi gives them, the
+7. CKKS bootstrapping at the published preset ``N15QP768_H192_H32``, full
+   logN 15 (2^14 complex slots, 15 Q + 2 P primes of 25-61 bits, an
+   H = 192 secret, ModUp under an H = 32 ephemeral secret): every earlier
+   phase's tensors freed and the peak memory counter reset; parameters
+   from the preset builder; the secret, relinearization, 53 level-scoped
+   Galois and two encapsulation keys, each from its own generator on the
+   card, and the DFT matrices, each timed; one input of uniform complex
+   slots from a numpy seed, encrypted and dropped to the minimum input
+   level; one untimed warm-up bootstrap with its dispatched torch ops
+   counted (and those inside the radix-2 NTT); then one bootstrap timed by
+   stage (ScaleDown + encapsulation + ModUp, C2S, EvalMod on each half,
+   S2C, each ending in a synchronize), equal to the warm-up's output,
+   decrypted, decoded and held at a precision floor set from the JAX
+   package's full-degree result less a bit; the rings' NTT engine
+   (radix2-plain: no kernel of this repository runs here, and the kernels'
+   launch counts over the bootstrap must be 0); the output level and
+   scale; peak device memory; one EvalMod half profiled (device kernels,
+   busy us, idle share, the top three kernel families);
+8. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -73,7 +91,9 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +128,11 @@ MP_PARTIES, MP_THRESHOLD, MP_ACTIVE = 4, 3, (1, 2, 4)
 # bits; tests/test_torch_sharing.py reference_refresh_precision) less one bit
 MP_REFRESH_LAMBDA = 12
 MP_REFRESH_MIN_BITS = (11.72, 15.04)
+# the bootstrap phase: the published preset at full logN 15, and its
+# precision floor (worst, mean bits): the JAX package's full-degree result
+# at this preset, 13.8 worst / 16.0 mean bits (README.md), less one bit
+BTP_PRESET = "N15QP768_H192_H32"
+BTP_MIN_BITS = (12.8, 15.0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -380,14 +405,11 @@ def phase_server(rows):
         f"{r['name']} {r['device_us_per_launch']:.3f} us" for r in mxu_rows))
 
 
-def profile_step(step, kernel: str = "ntt_mxu_kernel",
-                 host: bool = True) -> tuple[str, dict]:
-    """Device time of one step by kernel family, and the device's idle share
-    of the step's wall time; ``kernel`` names the family whose share is
-    reported. ``host=False`` records device activity only (for steps of
+def device_kernels(fn, host: bool = True) -> tuple[float, dict]:
+    """fn()'s wall µs under the profiler and {kernel name: (device µs,
+    launches)}; ``host=False`` records device activity only (for runs of
     hundreds of thousands of host ops, whose trace would take minutes to
-    sum). Also returns {kernel name: (device us, launches)} of that
-    family."""
+    sum)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -395,26 +417,39 @@ def profile_step(step, kernel: str = "ntt_mxu_kernel",
     acts = [ProfilerActivity.CPU] if host else []
     with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev, counts = {}, {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            dev[ev.key] = ev.self_device_time_total
-            counts[ev.key] = ev.count
-    total = sum(dev.values())
+    return wall_us, {ev.key: (ev.self_device_time_total, ev.count)
+                     for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA
+                     and ev.self_device_time_total > 0}
+
+
+def busy_text(wall_us: float, dev: dict) -> str:
+    total = sum(v for v, _ in dev.values())
+    return (f"wall {wall_us:.0f} us, {sum(n for _, n in dev.values())} device "
+            f"kernels busy {total:.0f} us (idle share "
+            f"{max(0.0, 1 - total / wall_us):.3f})")
+
+
+def profile_step(step, kernel: str = "ntt_mxu_kernel",
+                 host: bool = True) -> tuple[str, dict]:
+    """Device time of one step by kernel, and the device's idle share of the
+    step's wall time; ``kernel`` names the family whose share is reported
+    (see :func:`device_kernels` for ``host``). Also returns {kernel name:
+    (device us, launches)} of that family."""
+    wall_us, dev = device_kernels(step, host)
+    total = sum(v for v, _ in dev.values())
     if total == 0:
         return "not measured (no device time in the trace)", {}
-    family = {k: (v, counts[k]) for k, v in dev.items() if kernel in k}
+    family = {k: vn for k, vn in dev.items() if kernel in k}
     ntt = sum(v for v, _ in family.values())
     ntt_n = sum(n for _, n in family.values())
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:3]
-    return (f"wall {wall_us:.0f} us, {sum(counts.values())} device kernels busy "
-            f"{total:.0f} us (idle share {max(0.0, 1 - total / wall_us):.3f}), "
-            f"{kernel}s {ntt:.0f} us in {ntt_n} launches ({ntt / total:.3f} of "
-            f"device time); top: " + "; ".join(
-                f"{k[:50]} {v:.0f} us" for k, v in top)), family
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:3]
+    return (busy_text(wall_us, dev) + f", {kernel}s {ntt:.0f} us in {ntt_n} "
+            f"launches ({ntt / total:.3f} of device time); top: " + "; ".join(
+                f"{k[:50]} {v:.0f} us" for k, (v, _) in top)), family
 
 
 def ckks_server():
@@ -1090,6 +1125,198 @@ def phase_blindrot(rows):
         if r["name"].startswith("ntt_u32")))
 
 
+def kernel_family(name: str) -> str:
+    """A device kernel's family: its template's name, with the (up to two)
+    functors or ops it was instantiated for where the name carries them."""
+    head = re.split(r"[<(]", name, maxsplit=1)[0].replace("void ", "").strip()
+    found = []
+    for tok in re.findall(r"(\w+(?:Functor|_kernel_cuda|_kernel_impl|_kernel))\b",
+                          name[len(head):]):
+        if not tok.startswith("gpu_") and tok not in found:
+            found.append(tok)
+    base = head.split("::")[-1]
+    return f"{base}[{'/'.join(found[:2])}]" if found else base
+
+
+def profile_families(fn) -> str:
+    """Device kernels, busy µs and idle share of fn()'s wall time, and the
+    three kernel families that took the most device time (device activity
+    only: a trace of a host-bound stage of ~10^5 kernels)."""
+    wall_us, dev = device_kernels(fn, host=False)
+    if not dev:
+        return "not measured (no device time in the trace)"
+    fam = {}
+    for k, (v, n) in dev.items():
+        f = fam.setdefault(kernel_family(k), [0.0, 0])
+        f[0] += v
+        f[1] += n
+    top = sorted(fam.items(), key=lambda kv: -kv[1][0])[:3]
+    return busy_text(wall_us, dev) + "; top families: " + "; ".join(
+        f"{k} {v:.0f} us in {n}" for k, (v, n) in top)
+
+
+class OpCounter:
+    """Counts the aten ops torch dispatches (views included) while active,
+    and those dispatched inside the plain radix-2 NTT / INTT."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from lattigo_tpu_torch.ring import ntt as ntt_mod
+        counter = self
+        self.total = self.in_ntt = self.ntt_calls = 0
+        self._depth = 0
+        self._ntt_mod = ntt_mod
+        self._orig = (ntt_mod.ntt, ntt_mod.intt)
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.total += 1
+                counter.in_ntt += counter._depth > 0
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+
+    def _wrap(self, fn):
+        def wrapped(*a, **kw):
+            self.ntt_calls += 1
+            self._depth += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._depth -= 1
+        return wrapped
+
+    def __enter__(self):
+        self._ntt_mod.ntt, self._ntt_mod.intt = (self._wrap(f) for f in self._orig)
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._ntt_mod.ntt, self._ntt_mod.intt = self._orig
+
+
+def bootstrap_flow(device, log_n: int | None, timed):
+    """The bootstrap phase's main path at ``BTP_PRESET`` (its logN cut to
+    ``log_n`` when given, for a rehearsal on the CPU), set up by the
+    library's ``prepare_recipe`` with the seed ``SEED``: the keys each from
+    its own generator on ``device``, the DFT matrices, and 2^(logN-1)
+    complex slots encrypted at the minimum input level. ``timed(label,
+    fn)`` runs each set-up step fn() and returns its result. Returns the
+    objects and run(on_stage) (one bootstrap of the input) and bits(out)
+    (worst and mean bits of the decrypted, decoded output)."""
+    import numpy as np
+    from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
+
+    r = bp.prepare_recipe(getattr(bp, BTP_PRESET), log_n=log_n, seed=SEED,
+                          data_seed=SEED, device=device, timed=timed)
+    btp, ct, keys, v = r["evaluator"], r["ct"], r["keys"], r["slots"]
+
+    def run(on_stage=None):
+        return btp.bootstrap(ct, keys, on_stage=on_stage)
+
+    def bits(out):
+        got = r["decode"](out)
+        check(got.shape == v.shape and bool(np.isfinite(got).all()),
+              f"bootstrapped slots of shape {got.shape}, not all finite")
+        return bp.precision_bits(got, v)
+
+    return dict(params=r["params"], btp=btp, run=run, bits=bits,
+                galois_keys=len(r["galois_keys"]),
+                key_levels=sorted(set(btp.galois_element_levels().values())),
+                input_level=ct.level)
+
+
+def phase_bootstrap(rows, log_n: int | None = None):
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    setup = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        setup[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    res = bootstrap_flow("cuda", log_n, timed)
+    params, btp = res["params"], res["btp"]
+    engines = {name: ring.ntt_engine for name, ring in
+               (("Q", params.ring_q), ("P", params.ring_p))}
+    for name, eng in engines.items():
+        check(eng == "radix2-plain", f"bootstrap ring {name} on {eng}")
+    keys_mb = torch.cuda.max_memory_allocated() / 2**20
+    resident_mb = torch.cuda.memory_allocated() / 2**20
+
+    # one untimed warm-up bootstrap, its dispatched torch ops counted
+    with OpCounter() as ops:
+        warm = res["run"]()
+        torch.cuda.synchronize()
+    check(warm.level == btp.output_level, f"output level {warm.level}")
+
+    marks = {}
+
+    def mark(name, ct):
+        torch.cuda.synchronize()
+        marks[name] = (time.perf_counter(), ct)
+
+    ntt_mxu.reset_launches()
+    ntt_pallas.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = res["run"](mark)
+    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
+    for r in rows:
+        r["btp_launches"] = launches["ntt_mxu" if r["name"].startswith("ntt_mxu")
+                                     else "ntt_pallas"][
+            "inverse" if r["name"].endswith("inverse") else "forward"]
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"a kernel launched on the radix2-plain bootstrap: {launches}")
+    t = {k: (v[0] - t0) * 1e3 for k, v in marks.items()}
+    stage_ms = {"ScaleDown+encapsulation+ModUp": t["pre"],
+                "C2S": t["c2s im"] - t["pre"],
+                "EvalMod re": t["mod1 re"] - t["c2s im"],
+                "EvalMod im": t["mod1 im"] - t["mod1 re"],
+                "S2C": t["out"] - t["mod1 im"]}
+    check(torch.equal(out.value, warm.value), "two bootstraps of one input differ")
+    worst, mean = res["bits"](out)
+    check(worst >= BTP_MIN_BITS[0] and mean >= BTP_MIN_BITS[1],
+          f"bootstrap precision worst {worst:.2f} / mean {mean:.2f} bits below "
+          f"the floor {BTP_MIN_BITS[0]} / {BTP_MIN_BITS[1]}")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    phase_s = time.perf_counter() - t_phase
+    scale = float(out.scale)
+    print(f"phase 7 bootstrap: CKKS {BTP_PRESET} logN={params.log_n} "
+          f"Q={[q.bit_length() for q in params.q_moduli]} "
+          f"P={[p.bit_length() for p in params.p_moduli]} H=192 main / H=32 "
+          f"ephemeral secret; rings Q, P on {engines['Q']} / {engines['P']}; "
+          f"set-up ms: " + ", ".join(f"{k} {v:.1f}" for k, v in setup.items())
+          + f" ({res['galois_keys']} Galois keys at levels {res['key_levels']}); "
+          f"{params.max_slots} slots from level {res['input_level']}: bootstrap "
+          f"{t['out']:.1f} ms, by stage " + ", ".join(
+              f"{k} {v:.1f}" for k, v in stage_ms.items())
+          + f" ms; output level {out.level}, scale 2^{np.log2(scale):.4f}; "
+          f"precision worst {worst:.2f} / mean {mean:.2f} bits (floor "
+          f"{BTP_MIN_BITS[0]} / {BTP_MIN_BITS[1]}); kernel launches on the "
+          f"bootstrap {launches}; {ops.total} dispatched torch ops per bootstrap, "
+          f"{ops.in_ntt} ({ops.in_ntt / ops.total:.3f}) inside {ops.ntt_calls} "
+          f"radix-2 NTT/INTT calls; peak device memory {peak_mb:.1f} MiB "
+          f"({keys_mb:.1f} over the set-up, {resident_mb:.1f} resident after it; "
+          f"{held_mb:.1f} held by earlier phases at the start); the phase "
+          f"{phase_s:.1f} s")
+    ct_re = marks["c2s re"][1]
+    print("phase 7 profile (one EvalMod half): "
+          + profile_families(lambda: btp.eval_mod(ct_re)))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1110,6 +1337,7 @@ def main() -> int:
     phase_blindrot(rows)
     phase_ckks(rows)
     phase_multiparty(rows)
+    phase_bootstrap(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

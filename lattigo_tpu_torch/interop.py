@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lattigo_tpu_torch.circuits.bootstrapping import BootstrappingKeys
 from lattigo_tpu_torch.circuits.lintrans import LinearTransformation
 from lattigo_tpu_torch.multiparty.threshold import ShamirPolynomial
 from lattigo_tpu_torch.rgsw.blindrot import BlindRotationKeySet
@@ -123,6 +124,16 @@ def public_key_from_numpy(q, p, device) -> PublicKey:
 def evaluation_key_from_numpy(q, p, device) -> EvaluationKey:
     """Evaluation key from its gadget rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]."""
     return EvaluationKey(gadget_from_numpy(q, p, device))
+
+
+def bootstrapping_keys_from_numpy(dense_to_sparse, sparse_to_dense,
+                                  device) -> BootstrappingKeys:
+    """The bootstrap's encapsulation keys from the (q, p) gadget rows of
+    its two evaluation keys (either may be None: no encapsulation)."""
+    def evk(rows):
+        return None if rows is None else evaluation_key_from_numpy(*rows, device)
+    return BootstrappingKeys(evk_dense_to_sparse=evk(dense_to_sparse),
+                             evk_sparse_to_dense=evk(sparse_to_dense))
 
 
 def compressed_gadget_from_numpy(q, p, seed: bytes, device) -> CompressedGadgetCiphertext:

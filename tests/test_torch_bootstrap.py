@@ -1,0 +1,302 @@
+"""Port parity for CKKS bootstrapping: the homomorphic DFT, the published
+presets and the whole pipeline.
+
+Host tables with tolerance 0: ``dft_level_diagonals`` (and the stages and
+compositions it is made of) at logN 8–10, and, for all eight published
+presets, the chain the builder assembles and the evaluator parameters it
+derives, metadata only (the counterpart of ``tests/test_bootstrap_presets.py``).
+
+Then the slice as a whole: ``N15QP768_H192_H32`` at logN 9, its chain and
+radix splits unchanged. The JAX package makes the keys (secret,
+relinearization, the level-scoped Galois keys of
+``galois_element_levels()``, the two encapsulation keys) and the input
+ciphertext, and runs its own bootstrap through ``jitted(...).stages`` once
+(about 2.5 minutes with a cold XLA cache). The port, on the carried keys and
+ciphertext, encodes its own DFT matrices and bootstraps; every encoded
+matrix and each stage's output (``pre``, ``c2s`` re/im, ``mod1`` re/im, the
+final ciphertext) must be bit-equal to the JAX package's (tolerance 0),
+with the same exact ``Fraction`` scale and the same level. Then the port's
+own keys run its ``run_recipe`` at logN 9 against the JAX package's
+slow-tier thresholds (worst ≥ 15.5, avg ≥ 17.5 bits), and
+``SecretKeyBootstrapper`` refreshes to the top level. The slim circuit
+order and META-BTS, held against the JAX package, are
+``tests/test_torch_bootstrap_orders.py``; the port alone, on its own keys
+and with further options, is ``tests/test_torch_bootstrap_own.py``.
+"""
+
+from dataclasses import replace
+from fractions import Fraction
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from lattigo_tpu import rlwe as jrlwe
+from lattigo_tpu.circuits import (
+    bootstrapping as jbts, bootstrapping_presets as jbp, dft as jdft,
+)
+from lattigo_tpu.schemes import ckks as jckks
+from lattigo_tpu_torch import interop, rlwe as trlwe
+from lattigo_tpu_torch.circuits import (
+    bootstrapping as tbts, bootstrapping_presets as tbp, dft as tdft,
+)
+from lattigo_tpu_torch.schemes import ckks as tckks
+
+LOG_N = 9
+PRESET = "N15QP768_H192_H32"
+# the JAX package's slow-tier thresholds at logN 9 (tests/test_preset_recipes.py)
+MIN_WORST, MIN_AVG = 15.5, 17.5
+PRESET_NAMES = ["N16QP1546_H192_H32", "N16QP1547_H192_H32",
+                "N16QP1553_H192_H32", "N15QP768_H192_H32",
+                "N16QP1767_H32768_H32", "N16QP1788_H32768_H32",
+                "N16QP1793_H32768_H32", "N15QP880_H16384_H32"]
+STAGES = ["pre", "c2s re", "c2s im", "mod1 re", "mod1 im", "out"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's ops here act on small tensors, where torch's intra-op
+    threads only add overhead: one thread runs this file faster and leaves
+    the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# -- host tables ---------------------------------------------------------------
+
+def _assert_diags_equal(have, want):
+    assert sorted(have) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(have[k], want[k])
+
+
+@pytest.mark.parametrize("log_n", [8, 9, 10])
+def test_dft_level_diagonals_equal(log_n):
+    n = 1 << (log_n - 1)                  # full-slot count
+    logn = log_n - 1
+    for m in (1 << s for s in range(logn)):
+        for inverse in (False, True):
+            _assert_diags_equal(tdft.stage_diagonals(n, m, inverse),
+                                jdft.stage_diagonals(n, m, inverse))
+    np.testing.assert_array_equal(tdft.bit_reversal_permutation(n),
+                                  jdft.bit_reversal_permutation(n))
+    splits = [[logn], tbp._radix_split(logn, 2), tbp._radix_split(logn, 3),
+              [1] * logn]
+    for levels in splits:
+        assert tbp._radix_split(logn, len(levels)) == jbp._radix_split(logn, len(levels))
+        for inverse in (False, True):
+            for spl in (1.0, 0.5 / 16):
+                have = tdft.dft_level_diagonals(n, levels, inverse, spl)
+                want = jdft.dft_level_diagonals(n, levels, inverse, spl)
+                assert len(have) == len(want)
+                for h, w in zip(have, want):
+                    _assert_diags_equal(h, w)
+
+
+@pytest.mark.parametrize("name", PRESET_NAMES)
+def test_preset_parameters_equal(name):
+    """Every literal and the builder's output: the chain (log_q, log_p, xs,
+    scale) and the evaluator parameters, field for field."""
+    (tres, tlit), (jres, jlit) = getattr(tbp, name), getattr(jbp, name)
+    for f in ("log_n", "log_q", "log_p", "log_default_scale"):
+        assert getattr(tres, f) == getattr(jres, f)
+    assert tres.xs.hamming_weight == jres.xs.hamming_weight
+    assert vars(tlit) == vars(jlit)
+    tfull, tb = tbp.build_bootstrapping_parameters(tres, tlit)
+    jfull, jb = jbp.build_bootstrapping_parameters(jres, jlit)
+    for f in ("log_n", "log_q", "log_p", "log_default_scale"):
+        assert getattr(tfull, f) == getattr(jfull, f)
+    assert tfull.xs.hamming_weight == jfull.xs.hamming_weight
+    for f in ("c2s_levels", "s2c_levels", "residual_levels",
+              "ephemeral_secret_weight", "circuit_order"):
+        assert getattr(tb, f) == getattr(jb, f)
+    assert vars(tb.mod1) == vars(jb.mod1)
+    depth = tbts.BootstrappingEvaluator._mod1_depth(tb.mod1)
+    assert depth == jbts.BootstrappingEvaluator._mod1_depth(jb.mod1)
+    assert len(tfull.log_q) == (len(tb.c2s_levels) + depth + len(tb.s2c_levels)
+                                + tb.residual_levels + 1)
+    assert sum(tb.c2s_levels) == sum(tb.s2c_levels) == tres.log_n - 1
+    assert (tbp.DEFAULT_PARAMETERS_SPARSE + tbp.DEFAULT_PARAMETERS_DENSE).index(
+        getattr(tbp, name)) == PRESET_NAMES.index(name)
+
+
+# -- the slice: N15QP768_H192_H32 at logN 9 on carried keys ------------------------
+
+def _reduced(bp_mod):
+    residual, lit = getattr(bp_mod, PRESET)
+    return bp_mod.build_bootstrapping_parameters(
+        replace(residual, log_n=LOG_N), lit)
+
+
+def _gadget_np(gadget):
+    return np.asarray(gadget.value.q), np.asarray(gadget.value.p)
+
+
+def _lt_np(lt):
+    return dict(vec={k: (np.asarray(v.q), np.asarray(v.p)) for k, v in lt.vec.items()},
+                n1=lt.n1, level_q=lt.level_q, scale=Fraction(lt.scale),
+                slots=lt.slots)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's keys, input and bootstrap stages (as run_recipe
+    makes them), as numpy arrays and exact metadata."""
+    full, btp = _reduced(jbp)
+    params = jckks.Parameters(full)
+    kgen = jrlwe.KeyGenerator(params)
+    k_sk, k_rlk, k_gk, k_ct = jax.random.split(jax.random.PRNGKey(0), 4)
+    sk = kgen.gen_secret_key(k_sk)
+    rlk = kgen.gen_relinearization_key(k_rlk, sk)
+    enc = jckks.Encoder(params)
+    b = jbts.BootstrappingEvaluator(params, jckks.Evaluator(
+        params, jrlwe.EvaluationKeySet(relinearization_key=rlk)), enc, btp)
+    gks = kgen.gen_galois_keys(k_gk, b.galois_elements(), sk,
+                               levels=b.galois_element_levels())
+    b.with_evaluator(jckks.Evaluator(params, jrlwe.EvaluationKeySet(
+        relinearization_key=rlk, galois_keys=gks)))
+    keys = b.gen_encapsulation_keys(jax.random.PRNGKey(7), sk)
+    rng = np.random.default_rng(1)
+    v = (rng.uniform(-1, 1, params.max_slots)
+         + 1j * rng.uniform(-1, 1, params.max_slots))
+    ct = jrlwe.Encryptor(params, sk).encrypt(
+        k_ct, enc.encode(v)).at_level(b.minimum_input_level)
+    f = b.jitted(ct, keys=keys)
+    st = f.stages
+    outs = {"pre": st["pre"](ct)}
+    outs["c2s re"], outs["c2s im"] = st["c2s"](outs["pre"])
+    outs["mod1 re"] = st["mod1"](outs["c2s re"])
+    outs["mod1 im"] = st["mod1"](outs["c2s im"])
+    raw = st["s2c"](outs["mod1 re"], outs["mod1 im"])
+    outs["out"] = raw.replace(scale=f.out_meta["scale"])
+    return dict(
+        params=params, btp=b, v=v,
+        sk=(np.asarray(sk.value.q), np.asarray(sk.value.p)),
+        rlk=_gadget_np(rlk.gadget),
+        gks={g: _gadget_np(k.gadget) for g, k in gks.items()},
+        d2s=_gadget_np(keys.evk_dense_to_sparse.gadget),
+        s2d=_gadget_np(keys.evk_sparse_to_dense.gadget),
+        ct=(np.asarray(ct.value), Fraction(ct.scale)),
+        c2s=[_lt_np(lt) for lt in b.dft.c2s_mats],
+        s2c=[_lt_np(lt) for lt in b.dft.s2c_mats],
+        stages={k: (np.asarray(o.value), o.level, Fraction(o.scale))
+                for k, o in outs.items()})
+
+
+@pytest.fixture(scope="module")
+def port(ref):
+    """The port on the carried keys and ciphertext: its evaluator, its
+    stage outputs and its decrypted final slots."""
+    full, btp = _reduced(tbp)
+    params = tckks.Parameters(full, device="cpu")
+    enc = tckks.Encoder(params)
+    rlk = interop.relinearization_key_from_numpy(*ref["rlk"], "cpu")
+    b = tbts.BootstrappingEvaluator(params, tckks.Evaluator(
+        params, trlwe.EvaluationKeySet(relinearization_key=rlk)), enc, btp)
+    evk = interop.evaluation_key_set_from_numpy("cpu", rlk=ref["rlk"],
+                                                galois_keys=ref["gks"])
+    b.with_evaluator(tckks.Evaluator(params, evk))
+    keys = interop.bootstrapping_keys_from_numpy(ref["d2s"], ref["s2d"], "cpu")
+    value, scale = ref["ct"]
+    ct = interop.ciphertext_from_numpy(value, "cpu", scale=scale)
+    stages = {}
+    out = b.bootstrap(ct, keys, on_stage=lambda name, c: stages.setdefault(name, c))
+    sk = interop.secret_key_from_numpy(*ref["sk"], "cpu")
+    got = enc.decode(trlwe.Decryptor(params, sk).decrypt(out))
+    return dict(params=params, btp=b, stages=stages, out=out, got=got,
+                sk=sk, enc=enc, ct=ct, keys=keys)
+
+
+def test_layout_and_metadata_equal(ref, port):
+    jb, tb = ref["btp"], port["btp"]
+    assert port["params"].q_moduli == ref["params"].q_moduli
+    assert port["params"].p_moduli == ref["params"].p_moduli
+    assert tb.galois_elements() == jb.galois_elements()
+    assert tb.galois_element_levels() == jb.galois_element_levels()
+    for f in ("level_c2s_top", "level_mod1_top", "level_s2c_top",
+              "minimum_input_level", "output_level", "_modup_scalar",
+              "_mod1_scale"):
+        assert getattr(tb, f) == getattr(jb, f), f
+    assert tb.mod1._dc_bias == jb.mod1._dc_bias
+    level, scale = ref["params"].max_level, Fraction(2) ** 25
+    assert tb.scale_down_label(level, scale) == jb.scale_down_label(level, scale)
+    for ring in (port["params"].ring_q, port["params"].ring_p):
+        assert ring.ntt_engine == "radix2-plain"
+
+
+@pytest.mark.parametrize("group", ["c2s", "s2c"])
+def test_dft_matrices_bit_equal(ref, port, group):
+    """Every encoded diagonal, NTT + Montgomery over QP: tolerance 0."""
+    mats = getattr(port["btp"].dft, f"{group}_mats")
+    assert len(mats) == len(ref[group])
+    for lt, want in zip(mats, ref[group]):
+        assert (lt.n1, lt.level_q, Fraction(lt.scale), lt.slots) == (
+            want["n1"], want["level_q"], want["scale"], want["slots"])
+        assert sorted(lt.vec) == sorted(want["vec"])
+        for k, (q, p) in want["vec"].items():
+            np.testing.assert_array_equal(interop.to_numpy(lt.vec[k].q), q)
+            np.testing.assert_array_equal(interop.to_numpy(lt.vec[k].p), p)
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_stage_bit_equal(ref, port, stage):
+    """Tolerance 0 on the residues; the same level and exact scale."""
+    value, level, scale = ref["stages"][stage]
+    got = port["stages"][stage]
+    assert (got.level, Fraction(got.scale)) == (level, scale)
+    np.testing.assert_array_equal(interop.to_numpy(got.value), value)
+
+
+def test_carried_precision(ref, port):
+    """The bit-equal output decrypts to the input at the slow-tier floor."""
+    errs = np.abs(port["got"] - ref["v"])
+    assert port["out"].level == port["btp"].output_level
+    assert -np.log2(errs.max()) >= MIN_WORST
+    assert np.mean(-np.log2(np.maximum(errs, 2.0 ** -60))) >= MIN_AVG
+
+
+def test_own_keys_recipe():
+    """The port's own keys (torch generators) at logN 9."""
+    worst, avg = tbp.run_recipe(getattr(tbp, PRESET), log_n=LOG_N, device="cpu")
+    assert worst >= MIN_WORST, f"worst {worst:.2f} < {MIN_WORST}"
+    assert avg >= MIN_AVG, f"avg {avg:.2f} < {MIN_AVG}"
+
+
+def test_secret_key_bootstrapper(port):
+    params, enc = port["params"], port["enc"]
+    gen = torch.Generator().manual_seed(3)
+    skb = tbts.SecretKeyBootstrapper(params, enc, port["sk"], gen)
+    rng = np.random.default_rng(4)
+    v = rng.uniform(-1, 1, params.max_slots) + 1j * rng.uniform(-1, 1, params.max_slots)
+    ct = trlwe.Encryptor(params, port["sk"]).encrypt(gen, enc.encode(v)).at_level(0)
+    outs = skb.bootstrap_many([ct, ct])
+    assert skb.counter == 2
+    assert (skb.minimum_input_level, skb.output_level) == (0, params.max_level)
+    for out in outs:
+        assert out.level == params.max_level
+        assert out.scale == params.default_scale_fraction
+        got = enc.decode(trlwe.Decryptor(params, port["sk"]).decrypt(out))
+        assert np.abs(got - v).max() < 2.0 ** -12
+
+
+def test_bootstrap_many_full_slots(port):
+    """A list of full-slot ciphertexts is bootstrapped one by one."""
+    (out,) = port["btp"].bootstrap_many([port["ct"]], port["keys"])
+    want = port["out"]
+    assert (out.level, Fraction(out.scale)) == (want.level, Fraction(want.scale))
+    assert torch.equal(out.value, want.value)
+
+
+def test_unported_entry_points_raise(port):
+    b = port["btp"]
+    ct = port["out"]
+    with pytest.raises(NotImplementedError, match="ring_packing"):
+        b.bootstrap_many([ct], log_slots=3)
+    with pytest.raises(NotImplementedError, match="ring_packing"):
+        b.evaluate_conjugate_invariant(ct)
+    with pytest.raises(NotImplementedError, match="ring_packing"):
+        b.packing_galois_elements(3)
+

@@ -30,6 +30,10 @@ def test_port_imports_no_jax():
     assert "lattigo_tpu_torch.ring.ntt_mxu" in mods
     assert "lattigo_tpu_torch.schemes.ckks" in mods
     assert "lattigo_tpu_torch.circuits.lintrans" in mods
+    for m in ("polynomial", "mod1", "dft", "bootstrapping",
+              "bootstrapping_presets"):
+        assert "lattigo_tpu_torch.circuits." + m in mods
+    assert "lattigo_tpu_torch.utils.cosine" in mods
     assert "lattigo_tpu_torch.utils.ddarith" in mods
     for m in ("", ".protocols", ".threshold", ".additive_shares", ".sharing",
               ".sharing_bgv"):
