@@ -82,7 +82,30 @@ Phases (one line each; any failure exits non-zero before the result):
    launch counts over the bootstrap must be 0); the output level and
    scale; peak device memory; one EvalMod half profiled (device kernels,
    busy us, idle share, the top three kernel families);
-8. the card's name and power limit as nvidia-smi gives them, the
+8. the remaining circuits, every earlier phase's tensors freed and the
+   peak memory counter reset. 8a on BGV ``bgv_tpu_params(14, 438)``, a
+   batch of 4: the exact Paterson-Stockmeyer ``BGVPolynomialEvaluator``
+   on the degree-7 polynomial of the reference's test and on a seeded
+   degree-31 one, and two BFV ``mul_scale_invariant`` (relinearized, no
+   rescale; the auxiliary ring QMul of 61-bit primes is radix2-plain),
+   every slot equal to numpy's result mod T. 8b on CKKS
+   ``ckks_tpu_params(14, 438)`` with a relinearization key, the
+   conjugation key and a secret-key bootstrapper (decrypt, re-encode,
+   re-encrypt): ``ComparisonEvaluator``
+   ``step`` on ±[2^-8, 1] and ``max`` with |a - b| in [2^-8, 1] through a
+   sign of 10 X4 composite stages, and ``InverseEvaluator`` Goldschmidt on
+   [2^-4, 1] with automatic iterations; then ``evaluate_full_domain`` on
+   ±[2^-3, 2^2] on the published ``CKKS_COMPLEX_PARAMS_N14_QP438`` chain
+   (radix2-plain), whose q0 holds 1/x at level 0, with a bootstrapper
+   that reports minimum input level 1. Each CKKS result is
+   held at a floor set from the JAX package's result on the same
+   parameters, flow and inputs less a bit. The rings' engines are checked
+   (Q, P, T four-step; QMul and the inverse's radix-2); launch counts
+   zeroed before the circuits run once and read after, every distinct
+   four-step call held against the plain version; per circuit the ms
+   (mean of 3 after that run), its SK bootstraps, levels in and out and
+   four-step launches; peak device memory; one X4 stage profiled;
+9. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -133,6 +156,25 @@ MP_REFRESH_MIN_BITS = (11.72, 15.04)
 # at this preset, 13.8 worst / 16.0 mean bits (README.md), less one bit
 BTP_PRESET = "N15QP768_H192_H32"
 BTP_MIN_BITS = (12.8, 15.0)
+# the circuits phase: the BGV polynomial of tests/test_bgv_polynomial.py;
+# sign on ±[2^-8, 1] as 10 X4 stages: a Remez composite's later stages read
+# T_k outside [-1, 1] and lose every bit at logN 14, at scale 2^28 and at
+# 2^34; the full-domain inverse on the published N14 chain (q0 45 bits,
+# scale 2^34): on the 28-bit chain q0 ≈ Δ = 2^28, and Goldschmidt's
+# 1/x (mean ~3) wraps at level 0; its SK bootstrapper reports minimum
+# input level 1, because the inverse multiplies by the sign without
+# bootstrapping it, so the sign must end above level 0
+CIRC_POLY7 = [12, 7, 0, 3, 0, 0, 1, 9]
+CIRC_ALPHA = 8
+CIRC_X4_STAGES = 10
+CIRC_INV_MIN_LEVEL = 1
+CIRC_INV_PRESET = "CKKS_COMPLEX_PARAMS_N14_QP438"
+# floors (worst, mean bits): the JAX package on the same parameters, flow
+# and inputs on the CPU (python tests/test_torch_comparison_inverse.py:
+# step 11.07 / 14.64, max 9.31 / 10.84, Goldschmidt 10.45 / 14.90, inverse
+# 16.38 / 21.08) less one bit
+CIRC_MIN_BITS = {"step": (10.06, 13.63), "max": (8.31, 9.83),
+                 "goldschmidt": (9.44, 13.89), "inverse full domain": (15.38, 20.07)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1317,6 +1359,242 @@ def phase_bootstrap(rows, log_n: int | None = None):
           + profile_families(lambda: btp.eval_mod(ct_re)))
 
 
+def circuits_inputs(bgv_n: int, t: int, slots: int, inv_slots: int) -> dict:
+    """Phase 8's seeded numpy inputs, in one draw order (the JAX package's
+    floor run in ``tests/test_torch_comparison_inverse.py`` reads them
+    too): BGV messages mod t (BATCH x bgv_n, twice), the degree-31
+    coefficients, step's x ∈ ±[2^-8, 1], max's a ∈ [-1/2, 1/2] and b = a − d
+    with d ∈ ±[2^-8, 1], Goldschmidt's x ∈ [2^-4, 1] and the inverse's
+    x ∈ ±[2^-3, 2^2]."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+
+    def signed(lo, hi, n):
+        return rng.uniform(lo, hi, n) * rng.choice([-1.0, 1.0], n)
+
+    m1 = rng.integers(0, t, (BATCH, bgv_n))
+    m2 = rng.integers(0, t, (BATCH, bgv_n))
+    poly31 = [int(c) for c in rng.integers(0, t, 32)]
+    step_x = signed(2.0 ** -CIRC_ALPHA, 1.0, slots)
+    max_a = rng.uniform(-0.5, 0.5, slots)
+    max_b = max_a - signed(2.0 ** -CIRC_ALPHA, 1.0, slots)
+    gold_x = rng.uniform(2.0 ** -4, 1.0, slots)
+    inv_x = signed(2.0 ** -3, 2.0 ** 2, inv_slots)
+    return dict(m1=m1, m2=m2, poly31=poly31, step_x=step_x, max_a=max_a,
+                max_b=max_b, gold_x=gold_x, inv_x=inv_x)
+
+
+def circuits_flow(device, log_n: int = LOG_N):
+    """Phase 8's circuits on ``device`` (logN cut to ``log_n`` for a
+    rehearsal on the CPU): the parameters, keys (each set from its own
+    generator), SK bootstrappers and input ciphertexts of 8a and 8b, and
+    ``circuits``: {name: (run, check, input level, bootstrapper or None)},
+    where run() evaluates the circuit on its encrypted inputs and check(out)
+    returns True (8a, exact) or the (worst, mean) bits (8b)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import presets, rlwe
+    from lattigo_tpu_torch.circuits.bgv_polynomial import BGVPolynomialEvaluator
+    from lattigo_tpu_torch.circuits.bootstrapping import SecretKeyBootstrapper
+    from lattigo_tpu_torch.circuits.bootstrapping_presets import precision_bits
+    from lattigo_tpu_torch.circuits.comparison import ComparisonEvaluator
+    from lattigo_tpu_torch.circuits.inverse import InverseEvaluator
+    from lattigo_tpu_torch.circuits.minimax import MinimaxCompositeEvaluator, SIGN_X4_CHEBY
+    from lattigo_tpu_torch.schemes import bgv, ckks
+
+    gens = [torch.Generator(device=device).manual_seed(SEED * 8 + i) for i in range(6)]
+    bp = bgv.Parameters(presets.bgv_tpu_params(log_n, LOG_QP), device=device)
+    cp = ckks.Parameters(presets.ckks_tpu_params(log_n, LOG_QP), device=device)
+    ip = ckks.Parameters(dataclasses.replace(
+        getattr(presets, CIRC_INV_PRESET), log_n=log_n), device=device)
+    x = circuits_inputs(bp.n, bp.t, cp.max_slots, ip.max_slots)
+
+    # 8a: BGV / BFV, a batch of BATCH
+    kg = rlwe.KeyGenerator(bp)
+    bsk = kg.gen_secret_key(gens[0])
+    bev = bgv.Evaluator(bp, rlwe.EvaluationKeySet(kg.gen_relinearization_key(gens[0], bsk)))
+    benc, bdec = bgv.Encoder(bp), rlwe.Decryptor(bp, bsk)
+    encr = rlwe.Encryptor(bp, bsk)
+    c1, c2 = (encr.encrypt(gens[1], benc.encode(x[k]), batch=(BATCH,)) for k in ("m1", "m2"))
+    pe = BGVPolynomialEvaluator(bev)
+    t = bp.t
+    o1, o2 = x["m1"].astype(object), x["m2"].astype(object)
+
+    def horner(coeffs):
+        acc = np.zeros(o1.shape, dtype=object)
+        for c in coeffs[::-1]:
+            acc = (acc * o1 + c) % t
+        return acc
+
+    def exact(want):
+        return lambda out: bool(np.array_equal(benc.decode(bdec.decrypt(out)) % t,
+                                               (want % t).astype(np.int64)))
+
+    circuits = {
+        "bgv poly7": (lambda: pe.evaluate(c1, CIRC_POLY7), exact(horner(CIRC_POLY7)),
+                      c1.level, None),
+        "bgv poly31": (lambda: pe.evaluate(c1, x["poly31"]), exact(horner(x["poly31"])),
+                       c1.level, None),
+        "bfv mul_scale_invariant x2": (
+            lambda: bev.mul_scale_invariant(bev.mul_scale_invariant(c1, c2, relin=True),
+                                            c1, relin=True),
+            exact(o1 * o2 * o1), c1.level, None),
+    }
+
+    # 8b: CKKS on the four-step chain, secret-key bootstraps between stages
+    def ckks_keys(params, gen, btp_gen, min_level):
+        kg = rlwe.KeyGenerator(params)
+        sk = kg.gen_secret_key(gen)
+        ev = ckks.Evaluator(params, None)
+        els = MinimaxCompositeEvaluator(ev).galois_elements()
+        ev = ckks.Evaluator(params, rlwe.EvaluationKeySet(
+            kg.gen_relinearization_key(gen, sk), kg.gen_galois_keys(gen, els, sk)))
+        enc, dec = ckks.Encoder(params), rlwe.Decryptor(params, sk)
+        btp = SecretKeyBootstrapper(params, enc, sk, btp_gen, minimum_input_level=min_level)
+        encryptor = rlwe.Encryptor(params, sk)
+        return (ev, btp, lambda v: encryptor.encrypt(gen, enc.encode(v)),
+                lambda ct: enc.decode(dec.decrypt(ct)).real)
+
+    cev, cbtp, cenc, cdec = ckks_keys(cp, gens[2], gens[3], 0)
+    sign_polys = [SIGN_X4_CHEBY] * CIRC_X4_STAGES
+    ce = ComparisonEvaluator(cev, sign_polys=sign_polys, bootstrapper=cbtp)
+    ct_step = cenc(x["step_x"])
+    ct_a, ct_b = cenc(x["max_a"]), cenc(x["max_b"])
+    ct_gold = cenc(x["gold_x"])
+
+    def rel(v):
+        return lambda out: precision_bits(cdec(out) * v, 1.0)
+
+    circuits["step"] = (lambda: ce.step(ct_step), lambda out: precision_bits(
+        cdec(out), (np.sign(x["step_x"]) + 1) / 2), ct_step.level, cbtp)
+    circuits["max"] = (lambda: ce.max(ct_a, ct_b), lambda out: precision_bits(
+        cdec(out), np.maximum(x["max_a"], x["max_b"])), ct_a.level, cbtp)
+    circuits["goldschmidt"] = (
+        lambda: InverseEvaluator(cev, bootstrapper=cbtp).goldschmidt_division(
+            ct_gold, log2min=-4.0), rel(x["gold_x"]), ct_gold.level, cbtp)
+
+    # 8b: the full-domain inverse needs level 0 to hold 1/x: the published
+    # chain, whose q0 (45 bits) is 2^11 above its scale; its sign must end
+    # above level 0, where the inverse multiplies by it again
+    iev, ibtp, ienc, idec = ckks_keys(ip, gens[4], gens[5], CIRC_INV_MIN_LEVEL)
+    ie = InverseEvaluator(iev, bootstrapper=ibtp, sign_polys=sign_polys)
+    ct_inv = ienc(x["inv_x"])
+    circuits["inverse full domain"] = (
+        lambda: ie.evaluate_full_domain(ct_inv, -3.0, 2.0),
+        lambda out: precision_bits(idec(out) * x["inv_x"], 1.0), ct_inv.level, ibtp)
+
+    return dict(bgv=bp, ckks=cp, inv=ip, circuits=circuits, ckks_ev=cev,
+                stage_input=ct_step)
+
+
+def phase_circuits(rows, log_n: int = LOG_N):
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.circuits.minimax import MinimaxCompositeEvaluator, SIGN_X4_CHEBY
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    res = circuits_flow("cuda", log_n)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    bp, cp, ip, circuits = res["bgv"], res["ckks"], res["inv"], res["circuits"]
+    engines = {"BGV Q": bp.ring_q, "BGV P": bp.ring_p, "BGV T": bp.ring_t,
+               "BFV QMul": bp.ring_qmul, "CKKS Q": cp.ring_q, "CKKS P": cp.ring_p,
+               "inverse Q": ip.ring_q, "inverse P": ip.ring_p}
+    engines = {k: r.ntt_engine for k, r in engines.items()}
+    for k, eng in engines.items():
+        want = "radix2-plain" if k in ("BFV QMul", "inverse Q", "inverse P") else "mxu-cuda"
+        check(eng == want, f"phase 8 ring {k} on {eng}, not {want}")
+
+    # the main path once: every circuit, the four-step calls recorded
+    def main_path():
+        return {name: run() for name, (run, _, _, _) in circuits.items()}
+
+    ntt_pallas.reset_launches()
+    outs, calls, launches = record_calls(ntt_mxu, "four_step_cuda", main_path)
+    check(all(v == 0 for v in ntt_pallas.LAUNCHES.values()),
+          f"the u32 kernel launched in phase 8: {ntt_pallas.LAUNCHES}")
+    results = {}
+    for name, (_, chk, _, _) in circuits.items():
+        results[name] = chk(outs[name])
+        if name.startswith(("bgv", "bfv")):
+            check(results[name] is True, f"{name}: decoded slots != numpy mod T")
+        else:
+            floor = CIRC_MIN_BITS[name]
+            worst, mean = results[name]
+            check(worst >= floor[0] and mean >= floor[1],
+                  f"{name}: worst {worst:.2f} / mean {mean:.2f} bits below the "
+                  f"floor {floor[0]} / {floor[1]}")
+    check(outs["bfv mul_scale_invariant x2"].level == circuits[
+        "bfv mul_scale_invariant x2"][2], "mul_scale_invariant changed the level")
+    mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
+    for r in rows:
+        counts = launches if r["name"].startswith("ntt_mxu") else ntt_pallas.LAUNCHES
+        r["circuits_launches"] = counts["inverse" if r["name"].endswith("inverse")
+                                        else "forward"]
+    for r in mxu_rows:
+        check(r["circuits_launches"] > 0, f"{r['name']} not launched in phase 8")
+    launch = ntt_mxu.four_step_cuda
+    for eng, xin, limb_lo, inverse, lazy in calls.values():
+        k = launch(eng, xin, limb_lo, inverse, lazy)
+        want_k = ntt_mxu.four_step_plain(eng, xin, limb_lo, inverse, lazy)
+        for r in mxu_rows:
+            if r["name"].endswith("inverse") == inverse:
+                r["max_abs_err"] = max(r["max_abs_err"], int((k - want_k).abs().max()))
+        check(torch.equal(k, want_k), f"kernel != plain at phase-8 call "
+              f"{tuple(xin.shape)} limb_lo={limb_lo} inverse={inverse}")
+
+    # per circuit: launches, bootstraps and levels of one run, then the mean
+    # of 3 runs after it (the recorded run was the warm-up)
+    stats = {}
+    for name, (run, _, level_in, btp) in circuits.items():
+        b0 = btp.counter if btp is not None else 0
+        ntt_mxu.reset_launches()
+        torch.cuda.synchronize()
+        out = run()
+        torch.cuda.synchronize()
+        lau = dict(ntt_mxu.LAUNCHES)
+        boots = (btp.counter - b0) if btp is not None else 0
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        stats[name] = ((time.perf_counter() - t0) / 3 * 1e3, boots, level_in,
+                       out.level, lau)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    phase_s = time.perf_counter() - t_phase
+
+    def bits(name):
+        r = results[name]
+        return "exact" if r is True else f"{r[0]:.2f} / {r[1]:.2f} bits"
+
+    print(f"phase 8 circuits: 8a BGV logN={bp.log_n} Q={len(bp.q_moduli)}x28-bit "
+          f"T={bp.t}, {BATCH} ciphertexts, BFV QMul {len(bp.ring_qmul.moduli)} primes "
+          f"of 61-62 bits; 8b CKKS logN={cp.log_n} Q={len(cp.q_moduli)}x28-bit scale "
+          f"2^{cp.log_default_scale}, sign = {CIRC_X4_STAGES} X4 stages, SK "
+          f"bootstrapper; inverse on "
+          f"{CIRC_INV_PRESET} (Q {[q.bit_length() for q in ip.q_moduli]}, scale "
+          f"2^{ip.log_default_scale}) with the same sign, SK bootstrapper at minimum "
+          f"input level {CIRC_INV_MIN_LEVEL}; engines {engines}; set-up {setup_s:.2f} s; results: "
+          + ", ".join(f"{k} {bits(k)}" for k in circuits)
+          + f" (floors worst / mean: {CIRC_MIN_BITS}); four-step bit-equal to plain at "
+          f"the {len(calls)} distinct calls; launches on the main path {launches}; "
+          f"peak device memory {peak_mb:.1f} MiB; the phase {phase_s:.1f} s")
+    print("phase 8 per circuit (ms mean of 3 after one warm-up [SK bootstraps, "
+          "level in -> out, four-step forward/inverse launches]): " + "; ".join(
+              f"{k} {ms:.1f} ms [{b}, {li} -> {lo}, {lau['forward']}/{lau['inverse']}]"
+              for k, (ms, b, li, lo, lau) in stats.items()))
+    mce = MinimaxCompositeEvaluator(res["ckks_ev"])
+    ct = res["stage_input"]
+    print("phase 8 profile (one X4 composite stage at level "
+          f"{ct.level}, logN {cp.log_n}): "
+          + profile_families(lambda: mce.evaluate(ct, [SIGN_X4_CHEBY])))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1338,6 +1616,7 @@ def main() -> int:
     phase_ckks(rows)
     phase_multiparty(rows)
     phase_bootstrap(rows)
+    phase_circuits(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

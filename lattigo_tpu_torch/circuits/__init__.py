@@ -1,10 +1,13 @@
 """Circuits over the schemes: slot-space linear transformations,
-Paterson–Stockmeyer polynomial evaluation, homomorphic DFT, mod-1
-(EvalMod) and CKKS bootstrapping with its published presets."""
+Paterson–Stockmeyer polynomial evaluation (CKKS and exact BGV), homomorphic
+DFT, mod-1 (EvalMod), minimax composite polynomials, sign and comparison,
+inverse, and CKKS bootstrapping with its published presets."""
 
 from lattigo_tpu_torch.circuits import (
-    lintrans, polynomial, dft, mod1, bootstrapping, bootstrapping_presets,
+    lintrans, polynomial, bgv_polynomial, dft, mod1, minimax, comparison,
+    inverse, bootstrapping, bootstrapping_presets,
 )
 
-__all__ = ["lintrans", "polynomial", "dft", "mod1", "bootstrapping",
+__all__ = ["lintrans", "polynomial", "bgv_polynomial", "dft", "mod1",
+           "minimax", "comparison", "inverse", "bootstrapping",
            "bootstrapping_presets"]

@@ -471,9 +471,16 @@ class SecretKeyBootstrapper:
     randomness from ``gen``. Use it to test level-hungry circuits without
     paying for real bootstrapping; ``counter`` records how many bootstraps
     the circuit consumed.
+
+    ``minimum_input_level`` (0, as in the reference) is what it reports to
+    circuits that plan their bootstraps by it (the minimax composite
+    evaluator). Raise it where a composite's output must stay above level
+    0: ``InverseEvaluator.evaluate_full_domain`` multiplies by its sign
+    without bootstrapping it.
     """
 
-    def __init__(self, params, encoder, sk, gen: torch.Generator):
+    def __init__(self, params, encoder, sk, gen: torch.Generator,
+                 minimum_input_level: int = 0):
         from lattigo_tpu_torch.rlwe.encryption import Decryptor, Encryptor
 
         self.params = params
@@ -482,10 +489,11 @@ class SecretKeyBootstrapper:
         self.enc = Encryptor(params, sk)
         self.gen = gen
         self.counter = 0
+        self._min_level = minimum_input_level
 
     @property
     def minimum_input_level(self) -> int:
-        return 0
+        return self._min_level
 
     @property
     def output_level(self) -> int:

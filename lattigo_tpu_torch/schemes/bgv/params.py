@@ -3,16 +3,18 @@
 Counterpart of :mod:`lattigo_tpu.schemes.bgv.params`: adds the plaintext
 ring R_T (a :class:`Ring` over the single modulus T, for slot packing) and
 the T-scaling constants of the unified BGV/BFV evaluator (plaintexts are
-stored MSB-encoded as m·T^{-1} mod Q; tensoring pre-multiplies by T). The
-BFV double basis (``ring_qmul``) is not ported yet.
+stored MSB-encoded as m·T^{-1} mod Q; tensoring pre-multiplies by T) and
+the BFV double basis ``ring_qmul``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 
 from lattigo_tpu_torch import rlwe
 from lattigo_tpu_torch.ring.ring import Ring, u64_tensor
+from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
 
 
 @dataclass(frozen=True)
@@ -47,6 +49,26 @@ class Parameters(rlwe.Parameters):
     @property
     def plaintext_modulus(self) -> int:
         return self.t
+
+    @functools.cached_property
+    def ring_qmul(self) -> Ring:
+        """The BFV auxiliary basis QMul, |QMul| ≥ |Q|·N·T, for exact
+        scale-invariant tensoring: as many 61-bit primes as Q has, drawn
+        by ``next_alternating_prime`` and skipping Q's primes and T (the
+        JAX package's primes). Built on first use, on the parameters'
+        device. Its primes are ≥ 2^30, so its NTT is the plain radix-2
+        engine (``radix2-plain``) at every N. Half of them lie just above
+        2^61 (by < 2^23): the int64 values stay below 2^63 there (the
+        forward NTT's lazy values below 3.5q) except the inverse NTT's sum
+        x0 + x1 when both lie within 2^25 of 2q, a chance below 2^-70 a
+        butterfly."""
+        gen = NTTFriendlyPrimesGenerator(61, self.nth_root)
+        primes = []
+        while len(primes) < len(self.q_moduli):
+            c = gen.next_alternating_prime()
+            if c not in self.q_moduli and c != self.t:
+                primes.append(c)
+        return Ring(self.n, primes, device=self.device)
 
     def scale_mul(self, s1: int, s2: int) -> int:
         return s1 * s2 % self.t

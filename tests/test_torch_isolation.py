@@ -31,9 +31,11 @@ def test_port_imports_no_jax():
     assert "lattigo_tpu_torch.schemes.ckks" in mods
     assert "lattigo_tpu_torch.circuits.lintrans" in mods
     for m in ("polynomial", "mod1", "dft", "bootstrapping",
-              "bootstrapping_presets"):
+              "bootstrapping_presets", "bgv_polynomial", "minimax",
+              "comparison", "inverse"):
         assert "lattigo_tpu_torch.circuits." + m in mods
     assert "lattigo_tpu_torch.utils.cosine" in mods
+    assert "lattigo_tpu_torch.utils.minimax" in mods
     assert "lattigo_tpu_torch.utils.ddarith" in mods
     for m in ("", ".protocols", ".threshold", ".additive_shares", ".sharing",
               ".sharing_bgv"):
