@@ -105,7 +105,35 @@ Phases (one line each; any failure exits non-zero before the result):
    four-step call held against the plain version; per circuit the ms
    (mean of 3 after that run), its SK bootstraps, levels in and out and
    four-step launches; peak device memory; one X4 stage profiled;
-9. the card's name and power limit as nvidia-smi gives them, the
+9. the conjugate-invariant ring, the CKKS domain switcher, ring packing
+   and the sparse and CI bootstraps, every earlier phase's tensors freed
+   and the peak memory counter reset before each half. 9a on CKKS
+   ``ckks_tpu_params(14, 438)``, its conjugate-invariant twin (the same
+   primes at logN 13, 8192 real slots) and the standard ring at logN 13 on
+   those primes: a batch of 4 real vectors through ``CIEncoder`` and
+   ``rotate(rescale(mul_relin(a, b)), 1)`` on the CI ring; a batch of 4
+   complex ciphertexts through ``complex_to_real`` (Re(m) at twice the
+   scale) and ``real_to_complex`` (Re(m) + 0i); each held at a floor set
+   from the JAX package's result on the same parameters, flow and inputs
+   less a bit. ``RingPackingEvaluator`` on a logN-14 ciphertext of
+   coefficients m * 2^32: ``extract`` of 8 indices into logN-13
+   ciphertexts and ``repack``, ``split`` + ``merge``, ``expand`` at
+   log_gap 8 (64 ciphertexts), every decrypted coefficient exact. The
+   rings' engines checked (the CI ring on its plain transform, the
+   others four-step); launch counts zeroed before the operations run once
+   and read after, every distinct four-step call held against the plain
+   version; per operation the ms (mean of 3) and its four-step launches;
+   peak device memory; one ``complex_to_real`` profiled. 9b at
+   ``N15QP768_H192_H32``, full logN 15, set up by ``prepare_recipe`` with
+   the pack tree's Galois keys added: ``bootstrap_many`` of 4 ciphertexts
+   of 2^12 slots packed into one bootstrap, and
+   ``evaluate_conjugate_invariant`` of two CI ciphertexts on the chain's
+   CI twin at logN 14 (16384 real slots, its own secret and ring-swap
+   keys); every output at worst >= 11.8 / mean >= 14.0 bits (phase 7's
+   floor less a bit), at or above the output level, with 0 kernel
+   launches; ms of pack, the bootstrap, unpack and the CI pair; peak
+   device memory;
+10. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -175,6 +203,22 @@ CIRC_INV_PRESET = "CKKS_COMPLEX_PARAMS_N14_QP438"
 # 16.38 / 21.08) less one bit
 CIRC_MIN_BITS = {"step": (10.06, 13.63), "max": (8.31, 9.83),
                  "goldschmidt": (9.44, 13.89), "inverse full domain": (15.38, 20.07)}
+# phase 9a: the CI twin of ckks_tpu_params(14, 438) (its primes at logN 13,
+# 8192 real slots) and ring packing on its standard rings at logN 14 / 13:
+# coefficients m * 2^32 with m in [-7, 7], expand keeps every 2^8-th
+# coefficient (64 ciphertexts), extract takes 2 x 4 indices a quarter ring
+# apart; floors (min, avg bits): the JAX package on the same parameters,
+# flow and inputs on the CPU (python tests/test_torch_bridge.py, logN 14:
+# CI request 10.48 / 13.84, complex_to_real 10.85 / 14.27, real_to_complex
+# 10.72 / 13.59) less one bit
+RP_DELTA = 1 << 32
+RP_LOG_GAP = 8
+RING_MIN_BITS = {"ci request": (9.48, 12.84), "complex_to_real": (9.85, 13.27),
+                 "real_to_complex": (9.72, 12.59)}
+# phase 9b: 4 sparse ciphertexts of 2^(logN - 3) slots share one bootstrap
+# (g = 2); the floor (worst, mean bits) is phase 7's less one bit
+SPARSE_G = 2
+BTP9_MIN_BITS = (11.8, 14.0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1595,6 +1639,403 @@ def phase_circuits(rows, log_n: int = LOG_N):
           + profile_families(lambda: mce.evaluate(ct, [SIGN_X4_CHEBY])))
 
 
+def ring_inputs(n_ci: int, slots: int) -> dict:
+    """Phase 9a's seeded numpy inputs, in one draw order (the JAX package's
+    floor run in ``tests/test_torch_bridge.py`` reads them too): the CI
+    request's a and b (BATCH x n_ci reals in [-1, 1)), the bridge's BATCH x
+    slots complex values and the ring-packing message (2 n_ci coefficients
+    in [-7, 7])."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    a = rng.uniform(-1, 1, (BATCH, n_ci))
+    b = rng.uniform(-1, 1, (BATCH, n_ci))
+    z = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
+    m = rng.integers(-7, 8, 2 * n_ci)
+    return dict(a=a, b=b, z=z, m=m)
+
+
+def exact_coeffs(params, sk, ct) -> "np.ndarray":
+    """The decrypted coefficients of ct (one polynomial or a batch) over
+    RP_DELTA, rounded: centred from the first two limbs by CRT, which holds
+    every |m| * 2^32 + noise below q0 q1 / 2 ~ 2^55 exactly."""
+    import numpy as np
+    from lattigo_tpu_torch import rlwe
+    pt = rlwe.Decryptor(params, sk).decrypt(ct.at_level(1))
+    r = params.ring_q.intt(pt.value, 1).cpu().numpy()
+    q0, q1 = params.q_moduli[:2]
+    t = (r[..., 1, :] - r[..., 0, :]) % q1 * pow(q0, -1, q1) % q1
+    x = r[..., 0, :] + q0 * t
+    x = np.where(x > q0 * q1 // 2, x - q0 * q1, x)
+    return np.round(x / RP_DELTA).astype(np.int64)
+
+
+def ring_flow(device, log_n: int = LOG_N):
+    """Phase 9a on ``device`` (logN cut to ``log_n`` for a rehearsal on the
+    CPU): ``ckks_tpu_params(log_n, LOG_QP)``, its CI twin and its standard
+    ring at log_n - 1 on the same primes, their keys (each set from its own
+    generator) and inputs, and ``ops``: {name: (run, check)}, where run()
+    evaluates one operation and check(out) returns (min, avg) bits (CKKS)
+    or True (exact ring packing)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import presets, rlwe
+    from lattigo_tpu_torch.ring.ring import CONJUGATE_INVARIANT, STANDARD
+    from lattigo_tpu_torch.rlwe.ring_packing import (
+        RingPackingEvaluator, gen_ring_switching_keys)
+    from lattigo_tpu_torch.schemes import ckks
+    from lattigo_tpu_torch.schemes.ckks.bridge import DomainSwitcher, gen_ring_swap_keys
+
+    gens = [torch.Generator(device=device).manual_seed(SEED * 9 + i) for i in range(6)]
+    p_std = ckks.Parameters(presets.ckks_tpu_params(log_n, LOG_QP), device=device)
+    half = dataclasses.replace(
+        p_std.literal, log_n=log_n - 1, q=tuple(p_std.q_moduli), p=tuple(p_std.p_moduli),
+        log_q=None, log_p=None)
+    p_ci = ckks.Parameters(dataclasses.replace(half, ring_type=CONJUGATE_INVARIANT), device)
+    p_half = ckks.Parameters(dataclasses.replace(half, ring_type=STANDARD), device)
+    x = ring_inputs(p_ci.n, p_std.max_slots)
+
+    # the CI request: rotate(rescale(mul_relin(a, b)), 1) on BATCH real vectors
+    kg_ci = rlwe.KeyGenerator(p_ci)
+    sk_ci = kg_ci.gen_secret_key(gens[0])
+    ev_ci = ckks.Evaluator(p_ci, rlwe.EvaluationKeySet(
+        kg_ci.gen_relinearization_key(gens[0], sk_ci),
+        kg_ci.gen_galois_keys(gens[0], [p_ci.galois_element(1)], sk_ci)))
+    enc_ci, dec_ci = ckks.CIEncoder(p_ci), rlwe.Decryptor(p_ci, sk_ci)
+    encr_ci = rlwe.Encryptor(p_ci, sk_ci)
+    ca, cb = (encr_ci.encrypt(gens[1], enc_ci.encode(x[k]), batch=(BATCH,)) for k in "ab")
+
+    # the domain switcher between logN and its CI twin
+    kg = rlwe.KeyGenerator(p_std)
+    sk_std = kg.gen_secret_key(gens[2])
+    sw = DomainSwitcher(p_std, p_ci, *gen_ring_swap_keys(gens[2], p_std, sk_std, sk_ci))
+    enc_std = ckks.Encoder(p_std)
+    cz = rlwe.Encryptor(p_std, sk_std).encrypt(gens[3], enc_std.encode(x["z"]), batch=(BATCH,))
+    down = sw.complex_to_real(cz)
+
+    # ring packing on the standard rings at logN and logN - 1
+    sk_half = rlwe.KeyGenerator(p_half).gen_secret_key(gens[4])
+    params = {log_n - 1: p_half, log_n: p_std}
+    sks = {log_n - 1: sk_half, log_n: sk_std}
+    switching = gen_ring_switching_keys(gens[4], params, sks)
+    evs = {}
+    for l, p in params.items():
+        rp0 = RingPackingEvaluator(rlwe.Evaluator(p))
+        els = set(rp0.galois_elements_for_expand())
+        if l == log_n - 1:
+            els |= set(rp0.galois_elements_for_pack())
+        evs[l] = rlwe.Evaluator(p, rlwe.EvaluationKeySet(
+            galois_keys=rlwe.KeyGenerator(p).gen_galois_keys(gens[5], sorted(els), sks[l])))
+    rp = RingPackingEvaluator(evs[log_n], switching=switching, evaluators=evs)
+    m = x["m"]
+    rq = p_std.ring_q
+    ct_m = rlwe.Encryptor(p_std, sk_std).encrypt(gens[5], rlwe.Plaintext(
+        value=rq.ntt(rq.from_int_coeffs([int(c) * RP_DELTA for c in m])), is_ntt=True))
+    quarter = p_std.n // 4
+    idx = [r + k * quarter for r in (0, 1) for k in range(4)]
+
+    def bits(got, want):
+        from lattigo_tpu_torch.schemes.ckks import get_precision_stats
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"decoded slots of shape {got.shape}, not all finite")
+        st = get_precision_stats(want, got)
+        return st.min_precision, st.avg_precision
+
+    def extract_repack():
+        cts = rp.extract(ct_m, idx)
+        return cts, rp.repack(cts)
+
+    def check_extract(out):
+        cts, back = out
+        want = np.where(np.isin(np.arange(p_std.n), idx), m, 0)
+        return (sorted(cts) == sorted(idx)
+                and all(c.n == p_half.n and exact_coeffs(p_half, sk_half, c)[0] == m[i]
+                        for i, c in cts.items())
+                and bool(np.array_equal(exact_coeffs(p_std, sk_std, back), want)))
+
+    def split_merge():
+        even, odd = rp.split(ct_m)
+        return even, odd, rp.merge(even, odd)
+
+    def check_split(out):
+        even, odd, back = out
+        return (bool(np.array_equal(exact_coeffs(p_half, sk_half, even), m[0::2]))
+                and bool(np.array_equal(exact_coeffs(p_half, sk_half, odd), m[1::2]))
+                and bool(np.array_equal(exact_coeffs(p_std, sk_std, back), m)))
+
+    def check_expand(out):
+        gap = 1 << RP_LOG_GAP
+        return (sorted(out) == list(range(0, p_std.n, gap))
+                and all(exact_coeffs(p_std, sk_std, c)[0] == m[i] for i, c in out.items()))
+
+    ops = {
+        "ci request": (lambda: ev_ci.rotate(ev_ci.rescale(ev_ci.mul_relin(ca, cb)), 1),
+                       lambda out: bits(enc_ci.decode(dec_ci.decrypt(out)),
+                                        np.roll(x["a"] * x["b"], -1, axis=-1))),
+        "complex_to_real": (lambda: sw.complex_to_real(cz),
+                            lambda out: bits(enc_ci.decode(dec_ci.decrypt(out)), x["z"].real)),
+        "real_to_complex": (lambda: sw.real_to_complex(down),
+                            lambda out: bits(enc_std.decode(rlwe.Decryptor(
+                                p_std, sk_std).decrypt(out)), x["z"].real + 0j)),
+        "extract+repack": (extract_repack, check_extract),
+        "split+merge": (split_merge, check_split),
+        "expand": (lambda: rp.expand(ct_m, RP_LOG_GAP), check_expand),
+    }
+    return dict(std=p_std, ci=p_ci, half=p_half, ops=ops, cz=cz, sw=sw,
+                scale_in=cz.scale, scale_down=down.scale, galois_keys={
+                    l: len(e.evk.galois_keys) for l, e in evs.items()})
+
+
+def phase_ring_packing(rows, log_n: int = LOG_N):
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    res = ring_flow("cuda", log_n)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    keys_mb = torch.cuda.max_memory_allocated() / 2**20
+    ops = res["ops"]
+    engines = {"std Q": res["std"].ring_q, "std P": res["std"].ring_p,
+               "CI Q": res["ci"].ring_q, "CI P": res["ci"].ring_p,
+               "half Q": res["half"].ring_q, "half P": res["half"].ring_p}
+    engines = {k: r.ntt_engine for k, r in engines.items()}
+    for k, eng in engines.items():
+        want = "ci-plain" if k.startswith("CI") else "mxu-cuda"
+        check(eng == want, f"phase 9a ring {k} on {eng}, not {want}")
+    check(res["scale_down"] == 2 * res["scale_in"], "complex_to_real did not double the scale")
+
+    # the main path once: every operation, the four-step calls recorded
+    def main_path():
+        return {name: run() for name, (run, _) in ops.items()}
+
+    ntt_pallas.reset_launches()
+    outs, calls, launches = record_calls(ntt_mxu, "four_step_cuda", main_path)
+    check(all(v == 0 for v in ntt_pallas.LAUNCHES.values()),
+          f"the u32 kernel launched in phase 9a: {ntt_pallas.LAUNCHES}")
+    results = {}
+    for name, (_, chk) in ops.items():
+        results[name] = chk(outs[name])
+        if name in RING_MIN_BITS:
+            floor = RING_MIN_BITS[name]
+            lo, avg = results[name]
+            check(lo >= floor[0] and avg >= floor[1],
+                  f"{name}: min {lo:.2f} / avg {avg:.2f} bits below the floor "
+                  f"{floor[0]} / {floor[1]}")
+        else:
+            check(results[name] is True, f"{name}: a decrypted coefficient is not exact")
+    mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
+    for r in rows:
+        counts = launches if r["name"].startswith("ntt_mxu") else ntt_pallas.LAUNCHES
+        r["ring_launches"] = counts["inverse" if r["name"].endswith("inverse") else "forward"]
+    for r in mxu_rows:
+        check(r["ring_launches"] > 0, f"{r['name']} not launched in phase 9a")
+    launch = ntt_mxu.four_step_cuda
+    for eng, xin, limb_lo, inverse, lazy in calls.values():
+        k = launch(eng, xin, limb_lo, inverse, lazy)
+        want_k = ntt_mxu.four_step_plain(eng, xin, limb_lo, inverse, lazy)
+        for r in mxu_rows:
+            if r["name"].endswith("inverse") == inverse:
+                r["max_abs_err"] = max(r["max_abs_err"], int((k - want_k).abs().max()))
+        check(torch.equal(k, want_k), f"kernel != plain at phase-9a call "
+              f"{tuple(xin.shape)} limb_lo={limb_lo} inverse={inverse}")
+
+    # per operation: four-step launches of one run, then the mean of 3
+    stats = {}
+    for name, (run, _) in ops.items():
+        ntt_mxu.reset_launches()
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+        lau = dict(ntt_mxu.LAUNCHES)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        stats[name] = ((time.perf_counter() - t0) / 3 * 1e3, lau)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    phase_s = time.perf_counter() - t_phase
+
+    def res_text(name):
+        r = results[name]
+        return "exact" if r is True else f"{r[0]:.2f} / {r[1]:.2f} bits"
+
+    std, ci = res["std"], res["ci"]
+    print(f"phase 9a rings: CKKS logN={std.log_n} Q={len(std.q_moduli)}x28-bit "
+          f"P={len(std.p_moduli)}x28-bit scale 2^{std.log_default_scale}, its CI twin "
+          f"logN={ci.log_n} ({ci.max_slots} real slots) and standard logN={ci.log_n} on the "
+          f"same primes; engines {engines}; Galois keys by logN {res['galois_keys']}; "
+          f"set-up {setup_s:.2f} s, peak memory after keys {keys_mb:.1f} MiB; {BATCH} "
+          "requests; results: " + ", ".join(f"{k} {res_text(k)}" for k in ops)
+          + f" (floors min / avg: {RING_MIN_BITS}); four-step bit-equal to plain at the "
+          f"{len(calls)} distinct calls; launches on the main path {launches}; peak "
+          f"device memory {peak_mb:.1f} MiB; the phase {phase_s:.1f} s")
+    print("phase 9a per operation (ms mean of 3 after the main path [four-step "
+          "forward/inverse launches]): " + "; ".join(
+              f"{k} {ms:.1f} ms [{lau['forward']}/{lau['inverse']}]"
+              for k, (ms, lau) in stats.items()))
+    cz, sw = res["cz"], res["sw"]
+    print(f"phase 9a profile (one complex_to_real of {BATCH}): "
+          + profile_families(lambda: sw.complex_to_real(cz)))
+
+
+def sparse_bootstrap_flow(device, log_n: int | None, timed):
+    """Phase 9b's main path at ``BTP_PRESET`` (its logN cut to ``log_n``
+    when given, for a rehearsal on the CPU), set up by ``prepare_recipe``
+    with the pack tree's Galois keys added: 4 sparse ciphertexts of
+    2^(logN - 1 - SPARSE_G) slots and, on the chain's CI twin at logN - 1
+    with its own secret and ring-swap keys, 2 CI ciphertexts, all at the
+    minimum input level. Returns the objects, ``sparse(on_boot)`` and
+    ``ci()`` (the two entry points; ``on_boot(phase)`` sees "pack" before
+    the bootstrap and "boot" after it) and their checks, each giving the
+    (worst, mean) bits of every output."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import rlwe
+    from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
+    from lattigo_tpu_torch.ring.ring import CONJUGATE_INVARIANT
+    from lattigo_tpu_torch.schemes import ckks
+    from lattigo_tpu_torch.schemes.ckks.bridge import DomainSwitcher, gen_ring_swap_keys
+
+    preset = getattr(bp, BTP_PRESET)
+    log_slots = (log_n or preset[0].log_n) - 1 - SPARSE_G
+    r = bp.prepare_recipe(preset, log_n=log_n, seed=SEED, data_seed=SEED, device=device,
+                          timed=timed, pack_log_slots=log_slots)
+    params, btp, keys, sk = r["params"], r["evaluator"], r["keys"], r["sk"]
+    gen = torch.Generator(device=device).manual_seed(SEED * 11)
+    ci_lit = dataclasses.replace(params.literal, log_n=params.log_n - 1,
+                                 q=tuple(params.q_moduli), p=tuple(params.p_moduli),
+                                 log_q=None, log_p=None, ring_type=CONJUGATE_INVARIANT)
+    p_ci = timed("CI twin", lambda: ckks.Parameters(ci_lit, device))
+    sk_ci = rlwe.KeyGenerator(p_ci).gen_secret_key(gen)
+    sw = DomainSwitcher(params, p_ci, *timed(
+        "ring-swap keys", lambda: gen_ring_swap_keys(gen, params, sk, sk_ci)))
+    rng = np.random.default_rng(SEED + 9)
+    n_small = 1 << log_slots
+    sparse = [np.tile(rng.uniform(-1, 1, n_small) + 1j * rng.uniform(-1, 1, n_small),
+                      params.max_slots // n_small) for _ in range(1 << SPARSE_G)]
+    reals = [rng.uniform(-1, 1, p_ci.max_slots) for _ in range(2)]
+    enc, enc_ci = ckks.Encoder(params), ckks.CIEncoder(p_ci)
+    level = btp.minimum_input_level
+    cts = [rlwe.Encryptor(params, sk).encrypt(gen, enc.encode(v)).at_level(level)
+           for v in sparse]
+    cts_ci = [rlwe.Encryptor(p_ci, sk_ci).encrypt(gen, enc_ci.encode(v)).at_level(level)
+              for v in reals]
+    dec, dec_ci = rlwe.Decryptor(params, sk), rlwe.Decryptor(p_ci, sk_ci)
+
+    def sparse_run(on_boot=None):
+        if on_boot is None:
+            return btp.bootstrap_many(cts, keys, log_slots=log_slots)
+        boot = btp.bootstrap
+
+        def timed_boot(ct, k=None):
+            on_boot("pack")
+            out = boot(ct, k)
+            on_boot("boot")
+            return out
+
+        btp.bootstrap = timed_boot
+        try:
+            return btp.bootstrap_many(cts, keys, log_slots=log_slots)
+        finally:
+            del btp.bootstrap
+
+    def levels_ok(outs):
+        return all(o.level >= btp.output_level for o in outs)
+
+    def sparse_bits(outs):
+        check(len(outs) == len(sparse) and levels_ok(outs), "sparse outputs below "
+              f"the output level {btp.output_level}")
+        return [bp.precision_bits(enc.decode(dec.decrypt(o)), v) for o, v in zip(outs, sparse)]
+
+    def ci_bits(outs):
+        check(levels_ok(outs) and all(o.n == p_ci.n for o in outs),
+              "CI outputs not on the CI ring at the output level")
+        return [bp.precision_bits(enc_ci.decode(dec_ci.decrypt(o)), v)
+                for o, v in zip(outs, reals)]
+
+    return dict(params=params, ci=p_ci, btp=btp, log_slots=log_slots,
+                sparse=sparse_run, sparse_bits=sparse_bits,
+                ci_pair=lambda: btp.evaluate_conjugate_invariant(
+                    *cts_ci, switcher=sw, keys=keys), ci_bits=ci_bits,
+                galois_keys=len(r["galois_keys"]))
+
+
+def phase_sparse_bootstrap(rows, log_n: int | None = None):
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    setup = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        setup[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    res = sparse_bootstrap_flow("cuda", log_n, timed)
+    params, p_ci = res["params"], res["ci"]
+    engines = {name: ring.ntt_engine for name, ring in
+               (("Q", params.ring_q), ("P", params.ring_p), ("CI Q", p_ci.ring_q))}
+    for name, eng in engines.items():
+        want = "ci-plain" if name.startswith("CI") else "radix2-plain"
+        check(eng == want, f"phase 9b ring {name} on {eng}, not {want}")
+    marks = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+
+    ntt_mxu.reset_launches()
+    ntt_pallas.reset_launches()
+    mark("start")
+    outs = res["sparse"](mark)
+    mark("unpack")
+    ci_outs = res["ci_pair"]()
+    mark("ci")
+    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
+    for r in rows:
+        r["sparse_btp_launches"] = launches["ntt_mxu" if r["name"].startswith("ntt_mxu")
+                                            else "ntt_pallas"][
+            "inverse" if r["name"].endswith("inverse") else "forward"]
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"a kernel launched on the radix2-plain bootstraps: {launches}")
+    bits = {"sparse": res["sparse_bits"](outs), "ci": res["ci_bits"](ci_outs)}
+    for name, per_ct in bits.items():
+        for worst, mean in per_ct:
+            check(worst >= BTP9_MIN_BITS[0] and mean >= BTP9_MIN_BITS[1],
+                  f"{name} bootstrap precision worst {worst:.2f} / mean {mean:.2f} "
+                  f"bits below the floor {BTP9_MIN_BITS[0]} / {BTP9_MIN_BITS[1]}")
+    ms = {"pack": marks["pack"] - marks["start"], "bootstrap": marks["boot"] - marks["pack"],
+          "unpack": marks["unpack"] - marks["boot"], "CI pair": marks["ci"] - marks["unpack"]}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 9b sparse and CI bootstraps: CKKS {BTP_PRESET} logN={params.log_n}, "
+          f"CI twin logN={p_ci.log_n} ({p_ci.max_slots} real slots); engines {engines}; "
+          "set-up ms: " + ", ".join(f"{k} {v:.1f}" for k, v in setup.items())
+          + f" ({res['galois_keys']} Galois keys, the pack tree's included); "
+          f"{len(outs)} ciphertexts of 2^{res['log_slots']} slots in one bootstrap and "
+          f"2 CI ciphertexts in another: ms " + ", ".join(
+              f"{k} {v * 1e3:.1f}" for k, v in ms.items())
+          + "; worst / mean bits sparse " + ", ".join(
+              f"{w:.2f} / {m:.2f}" for w, m in bits["sparse"]) + ", CI " + ", ".join(
+              f"{w:.2f} / {m:.2f}" for w, m in bits["ci"])
+          + f" (floor {BTP9_MIN_BITS[0]} / {BTP9_MIN_BITS[1]}); output levels "
+          f"{sorted({o.level for o in outs + list(ci_outs)})} (output level "
+          f"{res['btp'].output_level}); kernel launches {launches}; peak device memory "
+          f"{peak_mb:.1f} MiB; the phase {phase_s:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1617,6 +2058,8 @@ def main() -> int:
     phase_multiparty(rows)
     phase_bootstrap(rows)
     phase_circuits(rows)
+    phase_ring_packing(rows)
+    phase_sparse_bootstrap(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -17,6 +17,11 @@ Scale plumbing (host metadata beside the residue tensors):
 * EvalMod returns slots ≈ m/q₀; the final relabel scale ← Δ·Δ₀/q₀ restores
   the true message — metadata only, no device work.
 
+The sparse ``bootstrap_many`` packs with the ring-packing evaluator
+(:mod:`lattigo_tpu_torch.rlwe.ring_packing`), and
+``evaluate_conjugate_invariant`` bridges through the CKKS domain switcher
+(:mod:`lattigo_tpu_torch.schemes.ckks.bridge`).
+
 Not ported here:
 
 * the JAX package's ``jitted`` has no counterpart, by design: it splits the
@@ -26,11 +31,9 @@ Not ported here:
   matrices and level-scoped Galois keys) at the published presets. A
   CUDA-graph capture of the pipeline is a performance item of its own
   (ROADMAP.md queue 2);
-* ``bootstrap_many`` of SPARSE ciphertexts, ``evaluate_conjugate_invariant``
-  and ``packing_galois_elements`` need the ring-packing evaluator
-  (``rlwe/ring_packing.py``) and the CKKS domain switcher
-  (``schemes/ckks/bridge.py``), which the port does not have yet (ROADMAP.md
-  queue 1 item 8). They raise ``NotImplementedError``.
+* the ``bootstrap_fn`` argument of the JAX package's ``bootstrap_many``
+  (it substitutes ``jitted``'s pipeline); a caller that needs another
+  refresh swaps the instance's ``bootstrap``.
 """
 
 from __future__ import annotations
@@ -55,12 +58,6 @@ from lattigo_tpu_torch.rlwe.elements import Ciphertext
 # execute in the coefficient domain between S2C and ModUp.
 MODUP_THEN_ENCODE = "modup-then-encode"   # ScaleDown→ModUp→C2S→EvalMod→S2C
 DECODE_THEN_MODUP = "decode-then-modup"   # S2C→ScaleDown→ModUp→C2S→EvalMod
-
-_NEEDS_RING_PACKING = (
-    "needs the ring-packing evaluator (rlwe/ring_packing.py) and the CKKS "
-    "domain switcher (schemes/ckks/bridge.py), which are not ported yet "
-    "(ROADMAP.md queue 1 item 8)")
-
 
 @dataclass
 class BootstrappingParameters:
@@ -439,28 +436,74 @@ class BootstrappingEvaluator:
     def bootstrap_many(self, cts: list[Ciphertext],
                        keys: BootstrappingKeys | None = None,
                        log_slots: int | None = None) -> list[Ciphertext]:
-        """Batch bootstrap of full-slot ciphertexts (ref BootstrapMany:229).
-        Sparse ciphertexts (``log_slots`` < log_max_slots) would be packed
-        with the ring-packing tree first, which is not ported: they raise."""
-        if log_slots is None or (1 << log_slots) >= self.params.max_slots:
+        """Batch bootstrap (ref BootstrapMany:229). Full-slot ciphertexts
+        are bootstrapped one by one. SPARSE ciphertexts (``log_slots`` <
+        log_max_slots: slots replicated 2^g times, so coefficients sit at
+        stride 2^g, g = log_max_slots − log_slots) are interleaved in groups
+        of up to 2^g into one full ciphertext by the ring-packing tree,
+        bootstrapped once and unpacked (ref PackAndSwitchN1ToN2 /
+        UnpackAndSwitchN2ToN1; the tree's Galois elements are
+        :meth:`packing_galois_elements`)."""
+        from lattigo_tpu_torch.rlwe.ring_packing import RingPackingEvaluator
+        p = self.params
+        if log_slots is None or (1 << log_slots) >= p.max_slots:
             return [self.bootstrap(c, keys) for c in cts]
-        raise NotImplementedError(
-            "bootstrap_many of sparse ciphertexts " + _NEEDS_RING_PACKING)
+        rp = RingPackingEvaluator(self.ev)
+        g = p.max_slots.bit_length() - 1 - log_slots
+        out: list[Ciphertext] = []
+        for lo in range(0, len(cts), 1 << g):
+            # pack at the minimum input level, so the pack tree's Galois
+            # keys can stay level-scoped
+            grp = [c.at_level(self.minimum_input_level)
+                   if c.level > self.minimum_input_level else c
+                   for c in cts[lo: lo + (1 << g)]]
+            packed = rp.pack(dict(enumerate(grp)), input_log_gap=g)
+            boot = self.bootstrap(packed, keys)
+            out.extend(rp.unpack(boot, g)[: len(grp)])
+        return out
 
     def evaluate_conjugate_invariant(
             self, ct_left: Ciphertext, ct_right: Ciphertext | None = None,
             switcher=None, keys: BootstrappingKeys | None = None):
-        """Bootstrap conjugate-invariant-ring ciphertexts through the
-        standard ring (ref EvaluateConjugateInvariant,
-        bootstrapping/evaluator.go:460): not ported, raises."""
-        raise NotImplementedError(
-            "evaluate_conjugate_invariant " + _NEEDS_RING_PACKING)
+        """Bootstrap one or two conjugate-invariant-ring ciphertexts with
+        one standard-ring bootstrap (ref EvaluateConjugateInvariant,
+        bootstrapping/evaluator.go:460): they are bridged to the standard
+        2N ring, packed as the real and imaginary halves of one complex
+        ciphertext, bootstrapped once and split back.
+
+        ``switcher`` is a :class:`~lattigo_tpu_torch.schemes.ckks.bridge
+        .DomainSwitcher` whose standard side is this evaluator's
+        parameters. Returns (ct_left', ct_right' or None) in the CI ring at
+        the bootstrap's output level; the exact Fraction scales absorb the
+        conjugation fold's factor 2."""
+        if switcher is None:
+            raise ValueError("evaluate_conjugate_invariant needs a DomainSwitcher")
+        ev = self.ev
+        up = switcher.real_to_complex(ct_left)
+        if ct_right is not None:
+            up = ev.add(up, ev.mul_by_i(switcher.real_to_complex(ct_right)))
+        out = self.bootstrap(up, keys)
+        left = switcher.complex_to_real(out)
+        right = None
+        if ct_right is not None:
+            # Re(−i·m) = Im(m): the imaginary half
+            right = switcher.complex_to_real(ev.mul_by_minus_i(out))
+        return left, right
 
     def packing_galois_elements(self, log_slots: int) -> dict[int, int]:
-        """Galois elements of the sparse bootstrap_many pack/unpack tree:
-        not ported, raises."""
-        raise NotImplementedError(
-            "packing_galois_elements " + _NEEDS_RING_PACKING)
+        """gal_el → level of the sparse :meth:`bootstrap_many`'s pack /
+        unpack tree (pack runs at the minimum input level, unpack at the
+        output level), for ``gen_galois_keys(..., levels=...)``."""
+        from lattigo_tpu_torch.rlwe.ring_packing import RingPackingEvaluator
+        p = self.params
+        rp = RingPackingEvaluator(self.ev)
+        g = p.max_slots.bit_length() - 1 - log_slots
+        lvls: dict[int, int] = {}
+        for el in rp.galois_elements_for_pack(log_start=p.log_n - g):
+            lvls[el] = max(lvls.get(el, 0), self.minimum_input_level)
+        for el in rp.galois_elements_for_unpack(g):
+            lvls[el] = max(lvls.get(el, 0), self.output_level)
+        return lvls
 
 
 class SecretKeyBootstrapper:

@@ -212,7 +212,8 @@ N15QP880_H16384_H32 = (
 )
 
 def prepare_recipe(preset, log_n: int | None = None, seed: int = 0,
-                   data_seed: int = 1, device=None, timed=None) -> dict:
+                   data_seed: int = 1, device=None, timed=None,
+                   pack_log_slots: int | None = None) -> dict:
     """Set up a preset's exact chain/mod1/factorization at (optionally
     reduced) ring degree on ``device`` (CUDA unless named): the parameters,
     the bootstrapping evaluator with its relinearization and level-scoped
@@ -222,9 +223,12 @@ def prepare_recipe(preset, log_n: int | None = None, seed: int = 0,
     The keys and the encryption draw from ``torch.Generator``s seeded from
     ``seed``, one per use; the input slots from numpy's ``data_seed``.
     ``timed(label, fn)``, when given, runs each key and matrix set-up step
-    as fn() and returns its result (e.g. to time it). Returns a dict with
-    ``params``, ``evaluator``, ``keys``, ``galois_keys``, ``ct``, ``slots``
-    and ``decode`` (a bootstrapped ciphertext → its decrypted slots).
+    as fn() and returns its result (e.g. to time it). ``pack_log_slots``
+    adds the Galois keys of the sparse ``bootstrap_many``'s pack tree at
+    that slot count (``packing_galois_elements``, at their levels). Returns
+    a dict with ``params``, ``evaluator``, ``keys``, ``galois_keys``,
+    ``sk``, ``ct``, ``slots`` and ``decode`` (a bootstrapped ciphertext →
+    its decrypted slots).
     """
     import numpy as np
     import torch
@@ -251,8 +255,13 @@ def prepare_recipe(preset, log_n: int | None = None, seed: int = 0,
     enc = ckks.Encoder(params)
     b = step("DFT matrices", lambda: BootstrappingEvaluator(params, ckks.Evaluator(
         params, rlwe.EvaluationKeySet(relinearization_key=rlk)), enc, btp))
-    gks = step("Galois keys", lambda: kgen.gen_galois_keys(
-        g_gk, b.galois_elements(), sk, levels=b.galois_element_levels()))
+    els, levels = list(b.galois_elements()), dict(b.galois_element_levels())
+    if pack_log_slots is not None:
+        for g, lvl in b.packing_galois_elements(pack_log_slots).items():
+            if g not in levels:
+                els.append(g)
+            levels[g] = max(levels.get(g, lvl), lvl)
+    gks = step("Galois keys", lambda: kgen.gen_galois_keys(g_gk, els, sk, levels=levels))
     b.with_evaluator(ckks.Evaluator(params, rlwe.EvaluationKeySet(
         relinearization_key=rlk, galois_keys=gks)))
     keys = step("encapsulation keys", lambda: b.gen_encapsulation_keys(g_enc, sk))
@@ -262,7 +271,7 @@ def prepare_recipe(preset, log_n: int | None = None, seed: int = 0,
     ct = rlwe.Encryptor(params, sk).encrypt(
         g_ct, enc.encode(v)).at_level(b.minimum_input_level)
     dec = rlwe.Decryptor(params, sk)
-    return dict(params=params, evaluator=b, keys=keys, galois_keys=gks,
+    return dict(params=params, evaluator=b, keys=keys, galois_keys=gks, sk=sk,
                 ct=ct, slots=v, decode=lambda out: enc.decode(dec.decrypt(out)))
 
 

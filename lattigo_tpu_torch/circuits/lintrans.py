@@ -258,7 +258,7 @@ class LinTransEvaluator:
             acc = self.ev.gadget_product_hoisted_lazy(digits, gk.gadget, level)
             # d0 += P·c0 (Q part only), then permute both rows
             d0q = rq.add(acc.q[..., 0, :, :], c0p, level)
-            idx = auto_mod.ntt_index(p.n, gal, rq.device)
+            idx = auto_mod.ntt_index(p.n, gal, rq.device, p.ring_type)
             pre[i] = (
                 QPPoly(auto_mod.apply_ntt(d0q, idx),
                        auto_mod.apply_ntt(acc.p[..., 0, :, :], idx)),
@@ -352,7 +352,8 @@ class LinTransEvaluator:
             d0p = rp.add(accp[..., 0, :, :], T0p)
             d1q, d1p = accq[..., 1, :, :], accp[..., 1, :, :]
             for g, j in enumerate(giants):
-                idx = auto_mod.ntt_index(p.n, p.galois_element(j), rq.device)
+                idx = auto_mod.ntt_index(p.n, p.galois_element(j), rq.device,
+                                         p.ring_type)
                 parts0.append(QPPoly(auto_mod.apply_ntt(d0q[g], idx),
                                      auto_mod.apply_ntt(d0p[g], idx)))
                 parts1.append(QPPoly(auto_mod.apply_ntt(d1q[g], idx),

@@ -20,6 +20,7 @@ from lattigo_tpu_torch.rgsw.blindrot import BlindRotationKeySet
 from lattigo_tpu_torch.rgsw.rgsw import Ciphertext as RgswCiphertext
 from lattigo_tpu_torch.ring.ringqp import QPPoly
 from lattigo_tpu_torch.rlwe.elements import Ciphertext, Plaintext
+from lattigo_tpu_torch.rlwe.ring_packing import RingSwitchingKeys
 from lattigo_tpu_torch.rlwe.keys import (
     CompressedGadgetCiphertext, EvaluationKey, EvaluationKeySet,
     GadgetCiphertext, GaloisKey, PublicKey, RelinearizationKey, SecretKey,
@@ -46,7 +47,8 @@ def qp_to_numpy(x: QPPoly) -> tuple[np.ndarray, np.ndarray | None]:
 
 
 def secret_key_from_numpy(q, p, device) -> SecretKey:
-    """Secret key from its QP parts (NTT + Montgomery form)."""
+    """Secret key from its QP parts (NTT + Montgomery form), on either ring
+    type: a conjugate-invariant secret holds its N CI NTT values."""
     return SecretKey(qp_from_numpy(q, p, device))
 
 
@@ -124,6 +126,17 @@ def public_key_from_numpy(q, p, device) -> PublicKey:
 def evaluation_key_from_numpy(q, p, device) -> EvaluationKey:
     """Evaluation key from its gadget rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]."""
     return EvaluationKey(gadget_from_numpy(q, p, device))
+
+
+def ring_switching_keys_from_numpy(params, down, up, device) -> RingSwitchingKeys:
+    """Ring-switching keys: ``params`` maps each logN to the port's
+    parameters, ``down`` / ``up`` map each logN but the least to the (q, p)
+    gadget rows of its evaluation key. (The domain switcher's ring-swap
+    keys are plain evaluation keys: :func:`evaluation_key_from_numpy`.)"""
+    return RingSwitchingKeys(
+        dict(params),
+        {int(l): evaluation_key_from_numpy(*rows, device) for l, rows in down.items()},
+        {int(l): evaluation_key_from_numpy(*rows, device) for l, rows in up.items()})
 
 
 def bootstrapping_keys_from_numpy(dense_to_sparse, sparse_to_dense,

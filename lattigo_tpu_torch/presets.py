@@ -1,8 +1,9 @@
 """Parameter presets.
 
-The CKKS complex-slot sets of the reference's examples (logQP budgets of
-the homomorphic-encryption.org tables for ternary secrets at 128-bit
-security; primes drawn NTT-friendly at construction). ``bgv_tpu_params``
+The CKKS complex-slot and real-slot (conjugate-invariant ring) sets of the
+reference's examples (logQP budgets of the homomorphic-encryption.org
+tables for ternary secrets at 128-bit security; primes drawn NTT-friendly
+at construction). ``bgv_tpu_params``
 and ``ckks_tpu_params`` build a budget of a given logQP from 28-bit primes
 (< 2^29), so every NTT of rings Q, P (and T) at 4096 ≤ N ≤ 16384 takes the
 four-step digit-matmul engine.
@@ -10,6 +11,7 @@ four-step digit-matmul engine.
 
 from __future__ import annotations
 
+from lattigo_tpu_torch.ring.ring import CONJUGATE_INVARIANT
 from lattigo_tpu_torch.schemes import bgv, ckks
 
 T_DEFAULT = 0x10001  # 65537
@@ -27,10 +29,32 @@ CKKS_COMPLEX_PARAMS_N15_QP881 = ckks.ParametersLiteral(
 CKKS_COMPLEX_PARAMS_N16_QP1761 = ckks.ParametersLiteral(
     log_n=16, log_q=(56,) + (45,) * 33, log_p=(55,) * 4, log_default_scale=45)
 
+# -- CKKS over R^N (conjugate-invariant ring) ----------------------------------
+
+CKKS_REAL_PARAMS_N12_QP109 = ckks.ParametersLiteral(
+    log_n=12, log_q=(38, 32), log_p=(39,), log_default_scale=32,
+    ring_type=CONJUGATE_INVARIANT)
+CKKS_REAL_PARAMS_N13_QP218 = ckks.ParametersLiteral(
+    log_n=13, log_q=(33,) + (30,) * 5, log_p=(35,), log_default_scale=30,
+    ring_type=CONJUGATE_INVARIANT)
+CKKS_REAL_PARAMS_N14_QP438 = ckks.ParametersLiteral(
+    log_n=14, log_q=(46,) + (34,) * 9, log_p=(43, 43), log_default_scale=34,
+    ring_type=CONJUGATE_INVARIANT)
+CKKS_REAL_PARAMS_N15_QP881 = ckks.ParametersLiteral(
+    log_n=15, log_q=(51,) + (40,) * 17, log_p=(50,) * 3, log_default_scale=40,
+    ring_type=CONJUGATE_INVARIANT)
+CKKS_REAL_PARAMS_N16_QP1761 = ckks.ParametersLiteral(
+    log_n=16, log_q=(56,) + (45,) * 33, log_p=(55,) * 4, log_default_scale=45,
+    ring_type=CONJUGATE_INVARIANT)
+
 CKKS_COMPLEX_PARAMS = [
     CKKS_COMPLEX_PARAMS_N12_QP109, CKKS_COMPLEX_PARAMS_N13_QP218,
     CKKS_COMPLEX_PARAMS_N14_QP438, CKKS_COMPLEX_PARAMS_N15_QP881,
     CKKS_COMPLEX_PARAMS_N16_QP1761]
+CKKS_REAL_PARAMS = [
+    CKKS_REAL_PARAMS_N12_QP109, CKKS_REAL_PARAMS_N13_QP218,
+    CKKS_REAL_PARAMS_N14_QP438, CKKS_REAL_PARAMS_N15_QP881,
+    CKKS_REAL_PARAMS_N16_QP1761]
 
 
 def bgv_tpu_params(log_n: int, log_qp: int, t: int = T_DEFAULT,

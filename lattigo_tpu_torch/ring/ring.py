@@ -16,6 +16,10 @@ JAX package's ``Ring._build_pallas``):
   (:mod:`.ntt_pallas`);
 * ``radix2``: every other chain uses the plain radix-2 engine (:mod:`.ntt`).
 
+A CONJUGATE_INVARIANT ring (``ring_type``) always takes the plain CI
+transform (:mod:`.ntt_ci`, 4N-th roots), which has no kernel in either
+package; ``ring.ntt_engine`` names it "ci-plain".
+
 Each kernel engine runs its CUDA kernel on the card and its plain version
 on the CPU; ``ring.ntt_engine`` names the choice. A kernel that fails to
 build or launch raises. The JAX package on a TPU sends a 28-bit chain at
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from lattigo_tpu_torch.device import resolve_device
-from lattigo_tpu_torch.ring import modops, ntt as ntt_mod, ntt_mxu, ntt_pallas
+from lattigo_tpu_torch.ring import modops, ntt as ntt_mod, ntt_ci, ntt_mxu, ntt_pallas
 from lattigo_tpu_torch.ring.modops import gen_bred_constant, gen_mred_constant
 from lattigo_tpu_torch.utils.primes import primitive_nth_root
 
@@ -112,9 +116,8 @@ class Ring:
             raise ValueError(f"N must be a power of two, got {n}")
         if len(set(moduli)) != len(moduli):
             raise ValueError("moduli must be distinct")
-        if ring_type != STANDARD:
-            raise NotImplementedError(
-                "the conjugate-invariant ring is not ported yet")
+        if ring_type not in (STANDARD, CONJUGATE_INVARIANT):
+            raise ValueError(f"unknown ring type {ring_type!r}")
         self.device = resolve_device(device)
         self.n = n
         self.log_n = n.bit_length() - 1
@@ -147,6 +150,21 @@ class Ring:
                 resc[last, i, 0] = _mform_int(pow(ql, -1, moduli[i]), moduli[i])
         self.rescale_constants = u64_tensor(resc, dev)
 
+        self.ci = ring_type == CONJUGATE_INVARIANT
+        if self.ci:
+            # per-limb CI transform tables (4N-th roots, see .ntt_ci)
+            tabs = []
+            for q in moduli:
+                if (q - 1) % (4 * n) != 0:
+                    raise ValueError(
+                        f"prime {q} not NTT-friendly for the CI ring (4N)")
+                tabs.append(ntt_ci.gen_ci_tables(n, primitive_nth_root(q, 4 * n), q))
+            self.ci_roots = u64_tensor(np.stack([t[0] for t in tabs]), dev)
+            self.ci_iroots = u64_tensor(np.stack([t[1] for t in tabs]), dev)
+            self.ci_f_fwd = u64_tensor([t[2] for t in tabs], dev, (L, 1))
+            self.ci_f_inv = u64_tensor([t[3] for t in tabs], dev, (L, 1))
+            self.ci_ninv = u64_tensor([t[4] for t in tabs], dev, (L, 1))
+
         self._engine = select_engine(n, self.moduli, ring_type)
         psis = [s.psi for s in self.subrings]
         self._mxu = (ntt_mxu.NTTMxu(n, self.moduli, psis, dev)
@@ -162,7 +180,10 @@ class Ring:
     def ntt_engine(self) -> str:
         """The NTT engine: "mxu-cuda" / "u32-cuda" (the four-step or u32
         CUDA kernel), "mxu-plain" / "u32-plain" (its plain torch version, on
-        the CPU) or "radix2-plain" (the stage-by-stage engine)."""
+        the CPU), "radix2-plain" (the stage-by-stage engine) or "ci-plain"
+        (the conjugate-invariant ring's transform)."""
+        if self.ci:
+            return "ci-plain"
         if self._kernel is None:
             return "radix2-plain"
         return self._engine + ("-cuda" if self.device.type == "cuda" else "-plain")
@@ -258,6 +279,8 @@ class Ring:
     # -- NTT ------------------------------------------------------------------
 
     def ntt(self, a, level: int | None = None, lazy: bool = False):
+        if self.ci:
+            return self._ntt_ci(a, slice(0, self._lvl(level) + 1), lazy)
         if self._kernel is not None:
             return self._kernel.ntt(a.contiguous(), lazy=lazy)
         l = self._lvl(level) + 1
@@ -265,6 +288,8 @@ class Ring:
                            self.log_n, lazy=lazy, small=self.small)
 
     def intt(self, a, level: int | None = None, lazy: bool = False):
+        if self.ci:
+            return self._intt_ci(a, slice(0, self._lvl(level) + 1), lazy)
         if self._kernel is not None:
             return self._kernel.intt(a.contiguous(), lazy=lazy)
         l = self._lvl(level) + 1
@@ -274,6 +299,8 @@ class Ring:
 
     def ntt_single(self, i: int, a, lazy: bool = False):
         """NTT over subring i only; a has a singleton limb axis [..., 1, N]."""
+        if self.ci:
+            return self._ntt_ci(a, slice(i, i + 1), lazy)
         if self._kernel is not None:
             return self._kernel.ntt_single(i, a.contiguous(), lazy=lazy)
         s = slice(i, i + 1)
@@ -281,9 +308,20 @@ class Ring:
                            self.log_n, lazy=lazy, small=self.small)
 
     def intt_single(self, i: int, a, lazy: bool = False):
+        if self.ci:
+            return self._intt_ci(a, slice(i, i + 1), lazy)
         if self._kernel is not None:
             return self._kernel.intt_single(i, a.contiguous(), lazy=lazy)
         s = slice(i, i + 1)
         return ntt_mod.intt(a, self.iroots[s], self.ninv[s], self.q[s],
                             self.qinv[s], self.log_n, lazy=lazy,
                             small=self.small)
+
+    def _ntt_ci(self, a, s: slice, lazy: bool):
+        return ntt_ci.ntt_ci(a, self.ci_roots[s], self.ci_f_fwd[s], self.q[s],
+                             self.qinv[s], self.log_n, lazy=lazy, small=self.small)
+
+    def _intt_ci(self, a, s: slice, lazy: bool):
+        return ntt_ci.intt_ci(a, self.ci_iroots[s], self.ci_f_inv[s],
+                              self.ci_ninv[s], self.q[s], self.qinv[s],
+                              self.log_n, lazy=lazy, small=self.small)

@@ -77,7 +77,8 @@ class RingQP:
 
     def automorphism_ntt(self, a: QPPoly, gal_el: int) -> QPPoly:
         """NTT-domain automorphism of both parts (one gather each)."""
-        idx = auto_mod.ntt_index(self.ring_q.n, gal_el, a.q.device)
+        idx = auto_mod.ntt_index(self.ring_q.n, gal_el, a.q.device,
+                                 self.ring_q.ring_type)
         p = None if a.p is None else auto_mod.apply_ntt(a.p, idx)
         return QPPoly(auto_mod.apply_ntt(a.q, idx), p)
 

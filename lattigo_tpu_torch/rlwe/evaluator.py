@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from lattigo_tpu_torch.ring import automorphism as auto_mod, modops
+from lattigo_tpu_torch.ring.ring import STANDARD
 from lattigo_tpu_torch.ring.ringqp import QPPoly
 from lattigo_tpu_torch.rlwe.elements import Ciphertext
 from lattigo_tpu_torch.rlwe.keys import (
@@ -111,7 +112,7 @@ class Evaluator:
             return ct
         ks = self.apply_evaluation_key(ct, self.evk.galois_key(gal_el))
         return ks.replace(value=auto_mod.automorphism_ntt(
-            ks.value, self.params.n, gal_el))
+            ks.value, self.params.n, gal_el, self.params.ring_type))
 
     def automorphism_hoisted(self, ct: Ciphertext, digits: QPPoly,
                              gal_el: int) -> Ciphertext:
@@ -124,7 +125,8 @@ class Evaluator:
         d = self.gadget_product_hoisted(digits, gk.gadget, level)
         d0 = self.params.ring_q.add(d[..., 0, :, :], ct.value[..., 0, :, :], level)
         v = torch.stack([d0, d[..., 1, :, :]], dim=-3)
-        return ct.replace(value=auto_mod.automorphism_ntt(v, self.params.n, gal_el))
+        return ct.replace(value=auto_mod.automorphism_ntt(
+            v, self.params.n, gal_el, self.params.ring_type))
 
     def rotate_columns(self, ct: Ciphertext, k: int) -> Ciphertext:
         return self.automorphism(ct, self.params.galois_element(k))
@@ -142,7 +144,8 @@ class Evaluator:
     def trace(self, ct: Ciphertext, log_n_start: int) -> Ciphertext:
         """Trace onto the degree-2^logn sub-ring: multiply by (N/n)^{-1},
         then the ladder out ← out + σ_{5^{2^i}}(out), plus the order-two
-        element when logn == 0."""
+        element when logn == 0 on the standard ring (on the
+        conjugate-invariant ring it is the identity)."""
         p = self.params
         level = ct.level
         gap = 1 << (p.log_n - log_n_start - 1)
@@ -161,7 +164,7 @@ class Evaluator:
         """Galois keys :meth:`trace` needs, in the order it applies them."""
         p = self.params
         els = [p.galois_element(1 << i) for i in range(log_n_start, p.log_n - 1)]
-        if log_n_start == 0:
+        if log_n_start == 0 and p.ring_type == STANDARD:
             els.append(p.galois_element_order_two)
         return els
 

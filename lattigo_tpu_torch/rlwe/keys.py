@@ -294,7 +294,8 @@ class KeyGenerator:
                                ) -> dict[int, GaloisKey]:
         p = self.params
         idx = torch.stack([auto_mod.ntt_index(p.n, p.galois_element_inverse(g),
-                                              p.device) for g in gal_els])
+                                              p.device, p.ring_type)
+                           for g in gal_els])
         sk_out = SecretKey(QPPoly(
             torch.movedim(sk.value.q[: level_q + 1, idx], -2, 0),
             torch.movedim(sk.value.p[:, idx], -2, 0)))       # [G, L, N]

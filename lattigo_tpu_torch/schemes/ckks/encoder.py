@@ -14,8 +14,11 @@ CRT-reconstructs each polynomial of a batch with Python integers
 (:meth:`Ring.to_int_coeffs`, one polynomial at a time).
 
 The 5^j slot order makes rotation by k the Galois element 5^k and
-conjugation the element 2N−1. The conjugate-invariant encoder waits for
-the CI ring.
+conjugation the element 2N−1.
+
+:class:`CIEncoder` is the conjugate-invariant ring's encoder: N real slots
+at ring degree N, evaluated at the 5-orbit of the 4N-th roots with one
+length-4N FFT.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from lattigo_tpu_torch.ring import sampling
-from lattigo_tpu_torch.ring.ring import STANDARD, u64_tensor
+from lattigo_tpu_torch.ring.ring import CONJUGATE_INVARIANT, STANDARD, u64_tensor
 from lattigo_tpu_torch.rlwe.elements import Plaintext
 from lattigo_tpu_torch.schemes.ckks.params import Parameters
 
@@ -44,13 +47,25 @@ def _rot_group_exponents(n: int) -> np.ndarray:
     return e
 
 
+@functools.lru_cache(maxsize=None)
+def _rot_group_exponents_ci(n: int) -> np.ndarray:
+    """e_k = 5^k mod 4N for k in [0, N) (CI ring: 4N-th roots)."""
+    four_n = 4 * n
+    e = np.zeros(n, dtype=np.int64)
+    cur = 1
+    for k in range(n):
+        e[k] = cur
+        cur = cur * 5 % four_n
+    return e
+
+
 class Encoder:
     """Canonical-embedding encoder (f64 on the host)."""
 
     def __init__(self, params: Parameters):
         if params.ring_type != STANDARD:
-            raise NotImplementedError(
-                "the conjugate-invariant encoder is not ported yet")
+            raise ValueError("Encoder takes a standard ring; the "
+                             "conjugate-invariant ring has CIEncoder")
         self.params = params
         self.exponents = _rot_group_exponents(params.n)
 
@@ -136,6 +151,44 @@ class Encoder:
             s = 2.0 ** log_prec
             v = (np.round(v.real * s) + 1j * np.round(v.imag * s)) / s
         return v
+
+
+class CIEncoder(Encoder):
+    """Real-slot encoder of the conjugate-invariant ring: N real slots at
+    ring degree N. CI elements take real values on the 5-orbit of the
+    4N-th roots, since p(ζ) = p(ζ^{-1}). The coefficient convention is
+    :mod:`lattigo_tpu_torch.ring.ntt_ci`'s: (c_0…c_{N−1}) ↦ c_0 + Σ c_j
+    (X^j + X^{−j}). Encoding, the RNS lift and decoding are the standard
+    encoder's, around this embedding; decoded slots are real."""
+
+    def __init__(self, params: Parameters):
+        if params.ring_type != CONJUGATE_INVARIANT:
+            raise ValueError("CIEncoder takes a conjugate-invariant ring")
+        self.params = params
+        self.exponents = _rot_group_exponents_ci(params.n)
+
+    def embed_to_coeffs(self, values) -> np.ndarray:
+        """real v[..., ≤N] → CI coeffs f64[..., N] (unscaled):
+        p̃_j = (1/N)·Re Σ_k v_k ζ^{e_k j}."""
+        n = self.params.n
+        v = np.real(np.asarray(values, dtype=np.complex128))
+        if v.shape[-1] < n:
+            v = np.concatenate([v, np.zeros(v.shape[:-1] + (n - v.shape[-1],))],
+                               axis=-1)
+        a = np.zeros(v.shape[:-1] + (4 * n,), dtype=np.complex128)
+        a[..., self.exponents] = v
+        return (1.0 / n) * np.fft.fft(a, axis=-1)[..., :n].real
+
+    def coeffs_to_slots(self, coeffs) -> np.ndarray:
+        """CI coeffs f64[..., N] → real slots[..., N]: the negacyclic
+        unfolding p̃_j = c_j, p̃_{2N−j} = −c_j, then a length-4N FFT."""
+        n = self.params.n
+        c = np.asarray(coeffs, dtype=np.float64)
+        full = np.zeros(c.shape[:-1] + (4 * n,), dtype=np.float64)
+        full[..., :n] = c
+        full[..., n + 1: 2 * n] = -c[..., 1:][..., ::-1]
+        spec = np.fft.ifft(full, axis=-1) * (4 * n)
+        return spec[..., self.exponents].real
 
 
 class PrecisionEncoder(Encoder):

@@ -18,12 +18,19 @@ final ciphertext) must be bit-equal to the JAX package's (tolerance 0),
 with the same exact ``Fraction`` scale and the same level. Then the port's
 own keys run its ``run_recipe`` at logN 9 against the JAX package's
 slow-tier thresholds (worst ≥ 15.5, avg ≥ 17.5 bits), and
-``SecretKeyBootstrapper`` refreshes to the top level. The slim circuit
+``SecretKeyBootstrapper`` refreshes to the top level. The sparse
+``bootstrap_many`` and ``evaluate_conjugate_invariant`` (on the chain's CI
+twin at logN 8) are held bit-equal to the JAX package's around one
+stand-in bootstrap (so no second JAX bootstrap is compiled), on keys the
+port makes from the carried secret, and then run on the port's real
+bootstrap at the reference tests' floor of 8 bits;
+``packing_galois_elements`` equals the JAX package's. The slim circuit
 order and META-BTS, held against the JAX package, are
 ``tests/test_torch_bootstrap_orders.py``; the port alone, on its own keys
 and with further options, is ``tests/test_torch_bootstrap_own.py``.
 """
 
+import copy
 from dataclasses import replace
 from fractions import Fraction
 
@@ -36,12 +43,18 @@ from lattigo_tpu import rlwe as jrlwe
 from lattigo_tpu.circuits import (
     bootstrapping as jbts, bootstrapping_presets as jbp, dft as jdft,
 )
+from lattigo_tpu.ring.ringqp import QPPoly as JQPPoly
+from lattigo_tpu.rlwe import ring_packing as jrp
 from lattigo_tpu.schemes import ckks as jckks
+from lattigo_tpu.schemes.ckks import bridge as jbridge
 from lattigo_tpu_torch import interop, rlwe as trlwe
 from lattigo_tpu_torch.circuits import (
     bootstrapping as tbts, bootstrapping_presets as tbp, dft as tdft,
 )
+from lattigo_tpu_torch.ring.ring import CONJUGATE_INVARIANT
 from lattigo_tpu_torch.schemes import ckks as tckks
+from lattigo_tpu_torch.schemes.ckks import bridge as tbridge
+from test_torch_ci_ring import FAST_COMPILE, jit_gadget_products, jitted_constant_ntts
 
 LOG_N = 9
 PRESET = "N15QP768_H192_H32"
@@ -52,6 +65,8 @@ PRESET_NAMES = ["N16QP1546_H192_H32", "N16QP1547_H192_H32",
                 "N16QP1767_H32768_H32", "N16QP1788_H32768_H32",
                 "N16QP1793_H32768_H32", "N15QP880_H16384_H32"]
 STAGES = ["pre", "c2s re", "c2s im", "mod1 re", "mod1 im", "out"]
+# the sparse bootstrap_many: 2^6 slots, so 2^2 ciphertexts share one bootstrap
+SPARSE_LOG_SLOTS = LOG_N - 3
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -290,13 +305,133 @@ def test_bootstrap_many_full_slots(port):
     assert torch.equal(out.value, want.value)
 
 
-def test_unported_entry_points_raise(port):
-    b = port["btp"]
-    ct = port["out"]
-    with pytest.raises(NotImplementedError, match="ring_packing"):
-        b.bootstrap_many([ct], log_slots=3)
-    with pytest.raises(NotImplementedError, match="ring_packing"):
-        b.evaluate_conjugate_invariant(ct)
-    with pytest.raises(NotImplementedError, match="ring_packing"):
-        b.packing_galois_elements(3)
+# -- the sparse and conjugate-invariant entry points ---------------------------
 
+def test_packing_galois_elements_equal(ref, port):
+    for log_slots in range(1, LOG_N - 1):
+        assert (port["btp"].packing_galois_elements(log_slots)
+                == ref["btp"].packing_galois_elements(log_slots))
+
+
+def _standin(ev):
+    """The bootstrap both packages' instances get for the bit-equality
+    test: deterministic and cheap (no new JAX bootstrap is compiled)."""
+    return lambda ct, keys=None: ev.add(ct, ct)
+
+
+@pytest.fixture(scope="module")
+def packing(ref, port):
+    """The port's keys and inputs for the sparse and CI entry points, made
+    from the carried secret: the level-scoped Galois keys of the pack tree
+    at ``SPARSE_LOG_SLOTS`` (added to the port's evaluator), the chain's CI
+    twin at logN 8 with its secret and ring-swap keys, 4 sparse and 2 CI
+    ciphertexts at the minimum input level; and both packages' outputs of
+    the two entry points with the stand-in bootstrap."""
+    params, b, sk = port["params"], port["btp"], port["sk"]
+    gen = torch.Generator().manual_seed(11)
+    lvls = b.packing_galois_elements(SPARSE_LOG_SLOTS)
+    have = b.galois_element_levels()
+    new = {g: l for g, l in lvls.items() if g not in have}
+    assert all(have[g] >= l for g, l in lvls.items() if g in have)
+    gks = dict(b.ev.evk.galois_keys)
+    gks.update(trlwe.KeyGenerator(params).gen_galois_keys(gen, sorted(new), sk, levels=new))
+    b.with_evaluator(tckks.Evaluator(params, trlwe.EvaluationKeySet(
+        relinearization_key=b.ev.evk.relinearization_key, galois_keys=gks)))
+    ci_lit = dict(log_n=LOG_N - 1, q=tuple(params.q_moduli), p=tuple(params.p_moduli),
+                  log_default_scale=params.log_default_scale, ring_type=CONJUGATE_INVARIANT)
+    params_ci = tckks.Parameters(tckks.ParametersLiteral(**ci_lit), device="cpu")
+    sk_ci = trlwe.KeyGenerator(params_ci).gen_secret_key(gen)
+    s2c, c2s = tbridge.gen_ring_swap_keys(gen, params, sk, sk_ci)
+    sw = tbridge.DomainSwitcher(params, params_ci, s2c, c2s)
+    rng = np.random.default_rng(12)
+    n_small = 1 << SPARSE_LOG_SLOTS
+    sparse = [np.tile(rng.uniform(-1, 1, n_small) + 1j * rng.uniform(-1, 1, n_small),
+                      params.max_slots // n_small) for _ in range(4)]
+    enc, enc_ci = port["enc"], tckks.CIEncoder(params_ci)
+    encr, encr_ci = trlwe.Encryptor(params, sk), trlwe.Encryptor(params_ci, sk_ci)
+    level = b.minimum_input_level
+    cts = [encr.encrypt(gen, enc.encode(v)).at_level(level) for v in sparse]
+    reals = [rng.uniform(-1, 1, params_ci.max_slots) for _ in range(2)]
+    cts_ci = [encr_ci.encrypt(gen, enc_ci.encode(v)).at_level(level) for v in reals]
+
+    def entry_points(b, sw, cts, cts_ci):
+        out = {f"sparse {i}": c for i, c in
+               enumerate(b.bootstrap_many(cts, log_slots=SPARSE_LOG_SLOTS))}
+        out["ci left"], out["ci right"] = b.evaluate_conjugate_invariant(*cts_ci, switcher=sw)
+        return out
+
+    tb = copy.copy(b)
+    tb.bootstrap = _standin(b.ev)
+    port_out = entry_points(tb, sw, cts, cts_ci)
+
+    jparams = ref["params"]
+    jparams_ci = jckks.Parameters(jckks.ParametersLiteral(**ci_lit))
+    scales = {}
+
+    def evk(key):
+        return jrlwe.EvaluationKey(jrlwe.GadgetCiphertext(JQPPoly(*key)))
+
+    def run(gks_np, s2c_np, c2s_np, values, values_ci):
+        jb = copy.copy(ref["btp"])
+        jb.ev = jit_gadget_products(jckks.Evaluator(jparams, jrlwe.EvaluationKeySet(
+            galois_keys={g: jrlwe.GaloisKey(jrlwe.GadgetCiphertext(JQPPoly(*k)), g)
+                         for g, k in gks_np.items()})))
+        jb.bootstrap = _standin(jb.ev)
+        jsw = jbridge.DomainSwitcher(jparams, jparams_ci, evk(s2c_np), evk(c2s_np))
+        jit_gadget_products(jsw.ev)
+        out = entry_points(
+            jb, jsw, [jrlwe.Ciphertext(value=v, scale=c.scale) for v, c in zip(values, cts)],
+            [jrlwe.Ciphertext(value=v, scale=c.scale) for v, c in zip(values_ci, cts_ci)])
+        scales.update({k: Fraction(c.scale) for k, c in out.items()})
+        return {k: c.value for k, c in out.items()}
+
+    with jitted_constant_ntts((jrp.RingPackingEvaluator, "_x_pow_mont"),
+                              (jckks.Evaluator, "_i_monomial")):
+        values = jax.jit(run, compiler_options=FAST_COMPILE)(
+            {g: interop.qp_to_numpy(gks[g].gadget.value) for g in lvls},
+            interop.qp_to_numpy(s2c.gadget.value), interop.qp_to_numpy(c2s.gadget.value),
+            [interop.to_numpy(c.value) for c in cts], [interop.to_numpy(c.value) for c in cts_ci])
+    ref_out = {k: (np.asarray(v), scales[k]) for k, v in values.items()}
+    return dict(params_ci=params_ci, sk_ci=sk_ci, sw=sw, sparse=sparse, reals=reals,
+                cts=cts, cts_ci=cts_ci, port=port_out, ref=ref_out)
+
+
+@pytest.mark.parametrize("name", ["sparse 0", "sparse 1", "sparse 2", "sparse 3",
+                                  "ci left", "ci right"])
+def test_entry_points_bit_equal(packing, name):
+    """Sparse bootstrap_many (pack, bootstrap, unpack) and
+    evaluate_conjugate_invariant around the same stand-in bootstrap:
+    tolerance 0, equal scales."""
+    got = packing["port"][name]
+    value, scale = packing["ref"][name]
+    assert Fraction(got.scale) == scale
+    np.testing.assert_array_equal(interop.to_numpy(got.value), value)
+
+
+def test_own_sparse_bootstrap_many(port, packing):
+    """4 sparse ciphertexts (2^SPARSE_LOG_SLOTS slots, replicated) share one
+    real bootstrap of the port and come back at the reference tests'
+    floor of 8 bits."""
+    b, params = port["btp"], port["params"]
+    outs = b.bootstrap_many(packing["cts"], port["keys"], log_slots=SPARSE_LOG_SLOTS)
+    assert len(outs) == 4
+    dec = trlwe.Decryptor(params, port["sk"])
+    for v, out in zip(packing["sparse"], outs):
+        assert out.level >= b.output_level
+        got = port["enc"].decode(dec.decrypt(out))
+        assert -np.log2(np.abs(got - v).max()) >= 8.0
+
+
+def test_own_conjugate_invariant_pair(port, packing):
+    """Two CI ciphertexts ride one real bootstrap of the port as its real
+    and imaginary halves, at the reference tests' floor of 8 bits."""
+    b = port["btp"]
+    outs = b.evaluate_conjugate_invariant(*packing["cts_ci"], switcher=packing["sw"],
+                                          keys=port["keys"])
+    params_ci = packing["params_ci"]
+    dec = trlwe.Decryptor(params_ci, packing["sk_ci"])
+    enc = tckks.CIEncoder(params_ci)
+    for v, out in zip(packing["reals"], outs):
+        assert out.n == params_ci.n and out.level >= b.output_level
+        got = enc.decode(dec.decrypt(out))
+        assert -np.log2(np.abs(got - v).max()) >= 8.0
