@@ -133,7 +133,30 @@ Phases (one line each; any failure exits non-zero before the result):
    floor less a bit), at or above the output level, with 0 kernel
    launches; ms of pack, the bootstrap, unpack and the CI pair; peak
    device memory;
-10. the card's name and power limit as nvidia-smi gives them, the
+10. keys on the wire, every earlier phase's tensors freed and the peak
+   memory counter reset. 10a on BGV ``bgv_tpu_params(14, 438)``: a client
+   makes its keys; the server rebuilds equal parameters from the client's
+   ``ParametersLiteral.to_json()`` and reads the relinearization key and
+   the Galois key of rotate_columns(1) from Lattigo's bytes
+   (``utils.lattigo_wire``); 4 + 4 ciphertexts go to the server as bytes,
+   ``rotate_columns(rescale(mul_relin(a, b)), 1)`` runs there and 4
+   results come back as bytes, decoded and checked against numpy's roll of
+   a*b mod T in every slot. 10b: the same 13 Q primes with no P and with
+   its first P prime, each with a base-2^14 relinearization key and an
+   evaluation key sk -> sk2 sent as bytes; a batch of 4 through
+   ``rescale(mul_relin)`` and one ``apply_evaluation_key``, both exact,
+   and ``log2_noise_std`` fresh and after each key switch beside
+   ``noise_fresh_sk``. 10c: a CKKS request at ``ckks_tpu_params(14, 438)``,
+   ``rotate(rescale(mul_relin(a, b)), 1)`` over the wire, decoded equal
+   before and after with its level, domain and scale kept, its
+   evaluation-key set through ``utils.serialization`` and back onto the
+   card. Every object sent is read back bit-equal and its size held to
+   Lattigo's layout; per kind of object its bytes, write and read ms and
+   MB/s; the request's ms end to end; the rings' engines checked
+   (four-step everywhere); launch counts zeroed before the main path and
+   read after, every distinct four-step call (the base-2 digit NTTs
+   included) held against the plain version; peak device memory;
+11. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -144,6 +167,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -219,6 +243,9 @@ RING_MIN_BITS = {"ci request": (9.48, 12.84), "complex_to_real": (9.85, 13.27),
 # (g = 2); the floor (worst, mean bits) is phase 7's less one bit
 SPARSE_G = 2
 BTP9_MIN_BITS = (11.8, 14.0)
+# phase 10: the base-2 gadget's digit width (tests/test_base2_gadget.py's):
+# 2 digits a 28-bit limb
+WIRE_BASE2 = 14
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2036,6 +2063,372 @@ def phase_sparse_bootstrap(rows, log_n: int | None = None):
           f"{peak_mb:.1f} MiB; the phase {phase_s:.1f} s")
 
 
+def wire_poly_bytes(n: int, limbs: int) -> int:
+    """Lattigo's bytes of one ring.Poly of ``limbs`` limbs at degree n: the
+    row count, then each row's length and its n words (8 for no basis)."""
+    return 8 + limbs * 8 * (n + 1)
+
+
+def wire_gadget_bytes(n: int, lq: int, lp: int, cols: list[int]) -> int:
+    """Bytes of a gadget ciphertext whose matrix rows have ``cols``
+    columns, each a Vector of two ringqp.Polys of lq + lp limbs."""
+    qp = wire_poly_bytes(n, lq) + wire_poly_bytes(n, lp)
+    return 16 + sum(8 + c * (8 + 2 * qp) for c in cols)
+
+
+def wire_tensors(obj) -> list:
+    """Every tensor of one of the port's objects, in field order, with its
+    scalar metadata (scale, flags, base2, Galois element)."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [x for f in dataclasses.fields(obj)
+                for x in wire_tensors(getattr(obj, f.name))]
+    if isinstance(obj, dict):
+        return [x for k, v in sorted(obj.items()) for x in [k] + wire_tensors(v)]
+    return [obj]
+
+
+def wire_equal(a, b) -> bool:
+    """Bit-equal tensors and equal metadata; a scale to 38 digits, as the
+    metadata's 39-digit text keeps a rational scale like 2^56 / q."""
+    from fractions import Fraction
+    import torch
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            return torch.equal(x, y)
+        if isinstance(x, (int, Fraction)) and isinstance(y, (int, Fraction)) and x:
+            return abs(Fraction(y) / Fraction(x) - 1) < Fraction(1, 10**38)
+        return x == y
+
+    ta, tb = wire_tensors(a), wire_tensors(b)
+    return len(ta) == len(tb) and all(same(x, y) for x, y in zip(ta, tb))
+
+
+def wire_flow(device, log_n: int = LOG_N):
+    """Phase 10 on ``device`` (logN cut to ``log_n`` for a rehearsal on the
+    CPU). Set-up: 10a's client (``bgv_tpu_params(log_n, LOG_QP)``, its
+    keys) and the server, which rebuilds the parameters from the client's
+    JSON and reads the relinearization key and the Galois key of
+    rotate_columns(1) from bytes; 10b's two chains on the same 13 Q primes
+    (no P; its first P prime), each with a base-2^WIRE_BASE2 relinearization
+    key and an evaluation key sk -> sk2 sent over the wire; 10c's CKKS
+    client at ``ckks_tpu_params(log_n, LOG_QP)`` whose evaluation-key set
+    goes through ``serialization`` and back. Every object sent is read back,
+    held bit-equal and its size held to Lattigo's layout; ``table`` collects
+    (name, bytes, write ms, read ms) in order. ``run()`` is the main path:
+    the 10a request (client encrypts and writes 4 + 4 ciphertexts, the server
+    reads them, runs rotate_columns(rescale(mul_relin(a, b)), 1) and writes 4,
+    the client reads and decodes), 10b's batch through rescale(mul_relin)
+    and one apply_evaluation_key on each chain, and the 10c request
+    (rotate(rescale(mul_relin(a, b)), 1) over the wire). It checks every
+    BGV slot exactly and returns what the phase prints."""
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import presets, rlwe
+    from lattigo_tpu_torch.schemes import bgv, ckks
+    from lattigo_tpu_torch.schemes.ckks import get_precision_stats
+    from lattigo_tpu_torch.utils import lattigo_wire as wire, noise, serialization
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    table = []
+
+    def send(name, obj, to_bytes, from_bytes, want_size):
+        """obj over the wire: written, read back onto the device, held
+        bit-equal and to Lattigo's size; returns what was read."""
+        sync()
+        t0 = time.perf_counter()
+        data = to_bytes(obj)
+        t1 = time.perf_counter()
+        back = from_bytes(data)
+        sync()
+        t2 = time.perf_counter()
+        check(len(data) == want_size, f"{name}: {len(data)} bytes, Lattigo's layout "
+              f"gives {want_size}")
+        check(wire_equal(back, obj), f"{name}: read(write(x)) != x")
+        table.append((name, len(data), (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        return back
+
+    def split(ct):
+        return [ct.replace(value=ct.value[i]) for i in range(ct.value.shape[0])]
+
+    def stack(cts):
+        return cts[0].replace(value=torch.stack([c.value for c in cts]))
+
+    gen = torch.Generator(device=device).manual_seed(SEED * 10)
+    rng = np.random.default_rng(SEED)
+
+    # 10a set-up: the client's parameters and keys, the server's from bytes
+    client = bgv.Parameters(presets.bgv_tpu_params(log_n, LOG_QP), device=device)
+    n, lq, lp = client.n, len(client.q_moduli), len(client.p_moduli)
+    kg = rlwe.KeyGenerator(client)
+    sk = kg.gen_secret_key(gen)
+    g1 = client.galois_element(1)
+    rlk = kg.gen_relinearization_key(gen, sk)
+    gk = kg.gen_galois_keys(gen, [g1], sk)[g1]
+    text = client.literal.to_json()
+    server = bgv.Parameters(bgv.ParametersLiteral.from_json(text), device=device)
+    check(server == client and server.t == client.t, "the server's parameters != the client's")
+    rns_cols = [1] * -(-lq // lp)
+    rlk_s = send("rlk", rlk, wire.relinearization_key_to_bytes,
+                 lambda b: wire.relinearization_key_from_bytes(b, device),
+                 wire_gadget_bytes(n, lq, lp, rns_cols))
+    gk_s = send("galois key", gk, lambda o: wire.galois_key_to_bytes(o, client.nth_root),
+                lambda b: wire.galois_key_from_bytes(b, device),
+                16 + wire_gadget_bytes(n, lq, lp, rns_cols))
+    ev_s = bgv.Evaluator(server, rlwe.EvaluationKeySet(rlk_s, {g1: gk_s}))
+    encoder, encryptor = bgv.Encoder(client), rlwe.Encryptor(client, sk)
+    decryptor = rlwe.Decryptor(client, sk)
+    a = rng.integers(0, client.t, (BATCH, n))
+    b = rng.integers(0, client.t, (BATCH, n))
+    ab = a * b % client.t
+    half = n // 2
+    want_bgv = np.concatenate([np.roll(ab[:, :half], -1, axis=-1),
+                               np.roll(ab[:, half:], -1, axis=-1)], axis=-1)
+    dims = (1, log_n - 1)
+
+    def ct_bytes(level: int) -> int:
+        return 1 + 277 + 8 + 2 * wire_poly_bytes(n, level + 1)
+
+    def send_cts(name, ct):
+        return stack([send(f"{name}[{i}]", c,
+                           lambda o: wire.ciphertext_to_bytes(o, log_dimensions=dims),
+                           lambda b: wire.ciphertext_from_bytes(b, device),
+                           ct_bytes(c.level)) for i, c in enumerate(split(ct))])
+
+    request_ms = {}
+
+    def bgv_request():
+        sync()
+        t0 = time.perf_counter()
+        ca = encryptor.encrypt(gen, encoder.encode(a), batch=(BATCH,))
+        cb = encryptor.encrypt(gen, encoder.encode(b), batch=(BATCH,))
+        ca_s, cb_s = send_cts("a", ca), send_cts("b", cb)
+        sync()
+        t1 = time.perf_counter()
+        out = ev_s.rotate_columns(ev_s.rescale(ev_s.mul_relin(ca_s, cb_s)), 1)
+        sync()
+        t2 = time.perf_counter()
+        got = encoder.decode(decryptor.decrypt(send_cts("result", out)))
+        t3 = time.perf_counter()
+        request_ms.update(end_to_end=(t3 - t0) * 1e3, server=(t2 - t1) * 1e3)
+        check(np.array_equal(got, want_bgv), "10a: decoded slots != roll(a*b mod T)")
+        return out
+
+    # 10b set-up: the 13 Q primes with no P and with the first P prime
+    b2 = {}
+    for name, p in (("no P", None), ("one P", tuple(client.p_moduli[:1]))):
+        params = bgv.Parameters(bgv.ParametersLiteral(
+            log_n=log_n, q=tuple(client.q_moduli), p=p, t=client.t), device=device)
+        check((params.basis_extender is None) == (p is None), f"10b {name}: basis extender")
+        kgb = rlwe.KeyGenerator(params)
+        s1, s2 = kgb.gen_secret_key(gen), kgb.gen_secret_key(gen)
+        cols = wire._base2_digit_counts(params.q_moduli, WIRE_BASE2)
+        size = wire_gadget_bytes(n, lq, len(params.p_moduli), cols)
+        moduli = params.q_moduli
+        rlk_b = send(f"base-2 rlk ({name})", kgb.gen_relinearization_key(gen, s1, base2=WIRE_BASE2),
+                     lambda o: wire.relinearization_key_to_bytes(o, moduli),
+                     lambda data: wire.relinearization_key_from_bytes(data, device), size)
+        evk_b = send(f"base-2 evk ({name})", kgb.gen_evaluation_key(gen, s1, s2, base2=WIRE_BASE2),
+                     lambda o: wire.evaluation_key_to_bytes(o, moduli),
+                     lambda data: wire.evaluation_key_from_bytes(data, device), size)
+        b2_rows = lq * max(cols)
+        b2[name] = dict(params=params, s1=s1, s2=s2, evk=evk_b,
+                        ev=bgv.Evaluator(params, rlwe.EvaluationKeySet(rlk_b)),
+                        enc=bgv.Encoder(params), encr=rlwe.Encryptor(params, s1))
+
+    def base2_run():
+        out = {}
+        for name, c in b2.items():
+            params, enc, ev = c["params"], c["enc"], c["ev"]
+            ca = c["encr"].encrypt(gen, enc.encode(a), batch=(BATCH,))
+            cb = c["encr"].encrypt(gen, enc.encode(b), batch=(BATCH,))
+            prod = ev.rescale(ev.mul_relin(ca, cb))
+            got = enc.decode(rlwe.Decryptor(params, c["s1"]).decrypt(prod))
+            check(np.array_equal(got, ab), f"10b {name}: slots != a*b mod T")
+            sw = ev.apply_evaluation_key(split(ca)[0], c["evk"])
+            got = enc.decode(rlwe.Decryptor(params, c["s2"]).decrypt(sw))
+            check(np.array_equal(got, a[0]), f"10b {name}: key switch != a")
+            out[name] = (ca, prod, sw)
+        return out
+
+    def base2_noise(outs):
+        """log2 std of the noise: fresh, after mul_relin + rescale, after
+        apply_evaluation_key (each against its exact plaintext)."""
+        res = {}
+        for name, (ca, prod, sw) in outs.items():
+            c = b2[name]
+            params, enc, rq = c["params"], c["enc"], c["params"].ring_q
+            fresh_pt = rq.intt(enc.encode(a[0]).value)
+            p0 = split(prod)[0]
+            prod_pt = rq.intt(enc.encode(ab[0], p0.level, p0.scale).value, p0.level)
+            res[name] = (noise.log2_noise_std(params, c["s1"], split(ca)[0], fresh_pt),
+                         noise.log2_noise_std(params, c["s1"], p0, prod_pt),
+                         noise.log2_noise_std(params, c["s2"], sw, fresh_pt),
+                         params.noise_fresh_sk())
+        return res
+
+    # 10c set-up: the CKKS client; its evaluation-key set through serialization
+    cp = ckks.Parameters(presets.ckks_tpu_params(log_n, LOG_QP), device=device)
+    kgc = rlwe.KeyGenerator(cp)
+    skc = kgc.gen_secret_key(gen)
+    g1c = cp.galois_element(1)
+    keys = rlwe.EvaluationKeySet(kgc.gen_relinearization_key(gen, skc),
+                                 kgc.gen_galois_keys(gen, [g1c], skc))
+    sync()
+    t0 = time.perf_counter()
+    blob = serialization.dumps(keys)
+    t1 = time.perf_counter()
+    keys_s = serialization.loads(blob, device=device)
+    sync()
+    t2 = time.perf_counter()
+    check(wire_equal(keys_s, keys), "10c: serialization.loads(dumps(keys)) != keys")
+    ser_stats = (len(blob), (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+    ev_c = ckks.Evaluator(cp, keys_s)
+    enc_c, encr_c, dec_c = ckks.Encoder(cp), rlwe.Encryptor(cp, skc), rlwe.Decryptor(cp, skc)
+    slots = cp.max_slots
+    za = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
+    zb = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
+    want_c = np.roll(za * zb, -1, axis=-1)
+    cdims = (0, cp.log_max_slots)
+
+    def send_ckks(name, ct):
+        return stack([send(f"ckks {name}[{i}]", c,
+                           lambda o: wire.ciphertext_to_bytes(o, log_dimensions=cdims),
+                           lambda data: wire.ciphertext_from_bytes(data, device),
+                           ct_bytes(c.level)) for i, c in enumerate(split(ct))])
+
+    def ckks_request():
+        """The server's result decoded before and after its trip back."""
+        ca = encr_c.encrypt(gen, enc_c.encode(za), batch=(BATCH,))
+        cb = encr_c.encrypt(gen, enc_c.encode(zb), batch=(BATCH,))
+        out = ev_c.rotate(ev_c.rescale(ev_c.mul_relin(send_ckks("a", ca), send_ckks("b", cb))), 1)
+        back = send_ckks("result", out)
+        check(back.level == out.level == cp.max_level - 1 and back.is_ntt
+              and wire_equal(back.scale, out.scale), "10c: level, domain or scale changed")
+        before = enc_c.decode(dec_c.decrypt(out))
+        after = enc_c.decode(dec_c.decrypt(back))
+        check(np.array_equal(before, after), "10c: decoded slots changed on the wire")
+        st = get_precision_stats(want_c, after)
+        return st.min_precision, st.avg_precision, out.scale
+
+    def run():
+        out = bgv_request()
+        outs = base2_run()
+        ckks_bits = ckks_request()
+        return dict(bgv=out, base2=outs, ckks_bits=ckks_bits)
+
+    return dict(client=client, b2={k: c["params"] for k, c in b2.items()}, ckks=cp,
+                b2_rows=b2_rows, b2_digits=cols,
+                run=run, bgv_request=bgv_request, base2_run=base2_run,
+                base2_noise=base2_noise, table=table, request_ms=request_ms,
+                ser_stats=ser_stats, json=text)
+
+
+def phase_wire(rows, log_n: int = LOG_N):
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    res = wire_flow("cuda", log_n)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    engines = {"Q": res["client"].ring_q, "P": res["client"].ring_p,
+               "T": res["client"].ring_t, "CKKS Q": res["ckks"].ring_q,
+               "CKKS P": res["ckks"].ring_p}
+    for name, p in res["b2"].items():
+        engines[f"{name} Q"] = p.ring_q
+        if p.ring_p is not None:
+            engines[f"{name} P"] = p.ring_p
+    engines = {k: r.ntt_engine for k, r in engines.items()}
+    for k, eng in engines.items():
+        check(eng == "mxu-cuda", f"phase 10 ring {k} on {eng}, not mxu-cuda")
+
+    # the main path once, the four-step calls recorded
+    ntt_pallas.reset_launches()
+    outs, calls, launches = record_calls(ntt_mxu, "four_step_cuda", res["run"])
+    check(all(v == 0 for v in ntt_pallas.LAUNCHES.values()),
+          f"the u32 kernel launched in phase 10: {ntt_pallas.LAUNCHES}")
+    mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
+    for r in rows:
+        counts = launches if r["name"].startswith("ntt_mxu") else ntt_pallas.LAUNCHES
+        r["phase10_launches"] = counts["inverse" if r["name"].endswith("inverse") else "forward"]
+    for r in mxu_rows:
+        check(r["phase10_launches"] > 0, f"{r['name']} not launched in phase 10")
+    launch = ntt_mxu.four_step_cuda
+    for eng, xin, limb_lo, inverse, lazy in calls.values():
+        k = launch(eng, xin, limb_lo, inverse, lazy)
+        want_k = ntt_mxu.four_step_plain(eng, xin, limb_lo, inverse, lazy)
+        for r in mxu_rows:
+            if r["name"].endswith("inverse") == inverse:
+                r["max_abs_err"] = max(r["max_abs_err"], int((k - want_k).abs().max()))
+        check(torch.equal(k, want_k), f"kernel != plain at phase-10 call "
+              f"{tuple(xin.shape)} limb_lo={limb_lo} inverse={inverse}")
+    digit_calls = sorted({tuple(x.shape) for _, x, _, inv, _ in calls.values()
+                          if not inv and x.dim() == 4 and x.shape[-3] == res["b2_rows"]})
+    noise_bits = res["base2_noise"](outs["base2"])
+    ckks_min, ckks_avg, ckks_scale = outs["ckks_bits"]
+    table = res["table"]
+
+    # the BGV request again for its ms (the main path's run was the first)
+    res["bgv_request"]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res["base2_run"]()
+    torch.cuda.synchronize()
+    base2_ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    phase_s = time.perf_counter() - t_phase
+
+    def rate(nbytes, ms):
+        return nbytes / 1e6 / (ms / 1e3) if ms > 0 else float("inf")
+
+    by_kind = {}
+    for name, nbytes, w_ms, r_ms in table:
+        kind = name.split("[")[0]
+        k = by_kind.setdefault(kind, [nbytes, 0.0, 0.0, 0])
+        k[1] += w_ms
+        k[2] += r_ms
+        k[3] += 1
+    client = res["client"]
+    print(f"phase 10a wire: BGV logN={client.log_n} Q={len(client.q_moduli)}x28-bit "
+          f"P={len(client.p_moduli)}x28-bit T={client.t}; the server rebuilt equal "
+          f"parameters from the client's {len(res['json'])}-byte JSON; {BATCH} requests "
+          f"rotate_columns(rescale(mul_relin(a, b)), 1) over Lattigo's bytes decode to "
+          f"roll(a*b mod T) in every slot; {len(table)} objects sent, each read back "
+          f"bit-equal at Lattigo's size; request end to end "
+          f"{res['request_ms']['end_to_end']:.1f} ms (the server's evaluation "
+          f"{res['request_ms']['server']:.1f} ms); engines {engines}")
+    print("phase 10 objects (bytes each, write / read ms mean, write / read MB/s; "
+          "x count): " + "; ".join(
+              f"{kind} {nb} B, {w / c:.2f} / {r / c:.2f} ms, {rate(nb, w / c):.0f} / "
+              f"{rate(nb, r / c):.0f} MB/s x{c}" for kind, (nb, w, r, c) in by_kind.items()))
+    print(f"phase 10b base-2 w={WIRE_BASE2}: " + "; ".join(
+        f"{name} ({len(p.q_moduli)} Q + {len(p.p_moduli)} P primes): batch of {BATCH} "
+        f"rescale(mul_relin) and apply_evaluation_key exact; log2 noise std fresh "
+        f"{f:.2f}, after mul_relin+rescale {m:.2f}, after the key switch {s:.2f} "
+        f"(noise_fresh_sk {sig} = 2^{math.log2(sig):.2f})"
+        for (name, p), (f, m, s, sig) in zip(res["b2"].items(), noise_bits.values()))
+        + f"; both chains {base2_ms:.1f} ms; digit NTT calls {digit_calls}")
+    n_ser, w_ser, r_ser = res["ser_stats"]
+    print(f"phase 10c: CKKS logN={res['ckks'].log_n} request rotate(rescale(mul_relin)) "
+          f"over the wire at {ckks_min:.2f} / {ckks_avg:.2f} bits min / avg, equal before "
+          f"and after, scale {float(ckks_scale):.6e} kept; serialization of the key set "
+          f"{n_ser} B, dumps {w_ser:.1f} ms, loads onto the card {r_ser:.1f} ms, "
+          f"bit-equal; four-step bit-equal to plain at the {len(calls)} distinct calls; "
+          f"launches on the main path {launches}; set-up {setup_s:.1f} s; peak device "
+          f"memory {peak_mb:.1f} MiB; the phase {phase_s:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2060,6 +2453,7 @@ def main() -> int:
     phase_circuits(rows)
     phase_ring_packing(rows)
     phase_sparse_bootstrap(rows)
+    phase_wire(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

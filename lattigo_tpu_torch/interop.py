@@ -5,10 +5,13 @@ bit patterns as ``torch.int64``. These helpers take the numpy ``uint64``
 arrays (the caller does the ``np.asarray`` on the JAX side) and build the
 port's objects on a chosen device, and turn the port's objects back into
 numpy ``uint64`` arrays. Metadata travels as it is: a CKKS scale stays an
-exact ``Fraction``. Nothing here imports JAX.
+exact ``Fraction``; a parameter literal travels as its JSON
+(:func:`parameters_literal_from_json`). Nothing here imports JAX.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -25,6 +28,8 @@ from lattigo_tpu_torch.rlwe.keys import (
     CompressedGadgetCiphertext, EvaluationKey, EvaluationKeySet,
     GadgetCiphertext, GaloisKey, PublicKey, RelinearizationKey, SecretKey,
 )
+from lattigo_tpu_torch.rlwe.params import ParametersLiteral
+from lattigo_tpu_torch.schemes import bgv, ckks
 
 
 def to_torch(a, device) -> torch.Tensor:
@@ -52,10 +57,10 @@ def secret_key_from_numpy(q, p, device) -> SecretKey:
     return SecretKey(qp_from_numpy(q, p, device))
 
 
-def relinearization_key_from_numpy(q, p, device) -> RelinearizationKey:
+def relinearization_key_from_numpy(q, p, device, base2: int = 0) -> RelinearizationKey:
     """Relinearization key from its gadget rows: q [beta, 2, LQ, N],
-    p [beta, 2, LP, N]."""
-    return RelinearizationKey(GadgetCiphertext(qp_from_numpy(q, p, device)))
+    p [beta, 2, LP, N] (``base2`` > 0: the power-of-two gadget's rows)."""
+    return RelinearizationKey(gadget_from_numpy(q, p, device, base2))
 
 
 def ciphertext_from_numpy(value, device, is_ntt: bool = True,
@@ -68,9 +73,10 @@ def plaintext_from_numpy(value, device, is_ntt: bool = True,
     return Plaintext(value=to_torch(value, device), is_ntt=is_ntt, scale=scale)
 
 
-def gadget_from_numpy(q, p, device) -> GadgetCiphertext:
-    """Gadget ciphertext from its rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]."""
-    return GadgetCiphertext(qp_from_numpy(q, p, device))
+def gadget_from_numpy(q, p, device, base2: int = 0) -> GadgetCiphertext:
+    """Gadget ciphertext from its rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]
+    (or None); ``base2`` > 0 for the power-of-two gadget's rows."""
+    return GadgetCiphertext(qp_from_numpy(q, p, device), int(base2))
 
 
 def galois_key_from_numpy(q, p, gal_el: int, device) -> GaloisKey:
@@ -123,9 +129,21 @@ def public_key_from_numpy(q, p, device) -> PublicKey:
     return PublicKey(qp_from_numpy(q, p, device))
 
 
-def evaluation_key_from_numpy(q, p, device) -> EvaluationKey:
-    """Evaluation key from its gadget rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]."""
-    return EvaluationKey(gadget_from_numpy(q, p, device))
+def evaluation_key_from_numpy(q, p, device, base2: int = 0) -> EvaluationKey:
+    """Evaluation key from its gadget rows: q [beta, 2, LQ, N], p [beta, 2, LP, N]
+    (``base2`` > 0: the power-of-two gadget's rows)."""
+    return EvaluationKey(gadget_from_numpy(q, p, device, base2))
+
+
+def parameters_literal_from_json(text: str) -> ParametersLiteral:
+    """The port's literal of either package's ``ParametersLiteral.to_json``
+    text: a BGV literal when the text has ``t``, a CKKS one when it has
+    ``log_default_scale``, else the RLWE literal."""
+    keys = json.loads(text)
+    cls = (bgv.ParametersLiteral if "t" in keys
+           else ckks.ParametersLiteral if "log_default_scale" in keys
+           else ParametersLiteral)
+    return cls.from_json(text)
 
 
 def ring_switching_keys_from_numpy(params, down, up, device) -> RingSwitchingKeys:

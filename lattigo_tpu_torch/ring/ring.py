@@ -264,6 +264,21 @@ class Ring:
         q, qinv, *_ = self.tables(level)
         return modops.mred(a, b, q, qinv, self.small)
 
+    def mul_mont_lazy(self, a, b, level: int | None = None):
+        """:meth:`mul_mont` with a lazy output in [0, 2q)."""
+        q, qinv, *_ = self.tables(level)
+        return modops.mred_lazy(a, b, q, qinv, self.small)
+
+    def mul_coeffs_barrett(self, a, b, level: int | None = None):
+        """a·b mod q by Barrett reduction (neither operand in M-form)."""
+        q, _, bhi, blo = self.tables(level)
+        return modops.bred_mul(a, b, q, bhi, blo)
+
+    def reduce(self, a, level: int | None = None):
+        """a mod q for any 64-bit pattern a."""
+        q, _, bhi, _ = self.tables(level)
+        return modops.bred_add(a, q, bhi)
+
     def rns_scalar(self, scalar: int, level: int | None = None, mont: bool = True):
         """Host int -> int64[l+1, 1] residues (optionally Montgomery form)."""
         l = self._lvl(level)
@@ -275,6 +290,24 @@ class Ring:
         """Multiply by a host integer scalar (RNS-lifted, Montgomery)."""
         q, qinv, *_ = self.tables(level)
         return modops.mred(a, self.rns_scalar(scalar, level), q, qinv, self.small)
+
+    def mul_by_monomial(self, a, k: int, level: int | None = None):
+        """a·X^k in the coefficient domain, any integer k: a negacyclic
+        roll, the coefficients that wrap past X^N negated (X^N = −1)."""
+        n = self.n
+        shift = k % (2 * n)
+        if shift == 0:
+            return a
+        q, *_ = self.tables(level)
+        s = shift % n
+        rolled = torch.roll(a, s, dims=-1) if s else a
+        # rolled right by s, the first s outputs wrapped once; a shift in
+        # [n, 2n) negates the whole polynomial once more
+        wrapped = torch.arange(n, device=a.device) < s
+        if shift >= n:
+            wrapped = ~wrapped
+        return torch.where(wrapped, modops.neg_mod(self.reduce(rolled, level), q),
+                           rolled)
 
     # -- NTT ------------------------------------------------------------------
 

@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 import torch
 
-from lattigo_tpu_torch.ring import automorphism as auto_mod, sampling
+from lattigo_tpu_torch.ring import automorphism as auto_mod, modops, sampling
 
 
 @dataclass
@@ -41,6 +41,10 @@ class RingQP:
         return self._map(lambda x, y: self.ring_q.add(x, y, level_q),
                          lambda x, y: self.ring_p.add(x, y), a, b)
 
+    def add_lazy(self, a: QPPoly, b: QPPoly) -> QPPoly:
+        """a + b, not reduced."""
+        return self._map(lambda x, y: x + y, lambda x, y: x + y, a, b)
+
     def sub(self, a: QPPoly, b: QPPoly, level_q: int | None = None) -> QPPoly:
         return self._map(lambda x, y: self.ring_q.sub(x, y, level_q),
                          lambda x, y: self.ring_p.sub(x, y), a, b)
@@ -60,6 +64,23 @@ class RingQP:
     def mul_mont(self, a: QPPoly, b: QPPoly, level_q: int | None = None) -> QPPoly:
         return self._map(lambda x, y: self.ring_q.mul_mont(x, y, level_q),
                          lambda x, y: self.ring_p.mul_mont(x, y), a, b)
+
+    def mul_mont_lazy(self, a: QPPoly, b: QPPoly,
+                      level_q: int | None = None) -> QPPoly:
+        return self._map(lambda x, y: self.ring_q.mul_mont_lazy(x, y, level_q),
+                         lambda x, y: self.ring_p.mul_mont_lazy(x, y), a, b)
+
+    def reduce(self, a: QPPoly, level_q: int | None = None) -> QPPoly:
+        """Both parts mod q, from any 64-bit pattern."""
+        return self._map(lambda x: self.ring_q.reduce(x, level_q),
+                         lambda x: self.ring_p.reduce(x), a)
+
+    def reduce_lazy(self, a: QPPoly, level_q: int | None = None) -> QPPoly:
+        """Both parts mod q up to one extra q: [0, 2q)."""
+        lq = self.ring_q._lvl(level_q) + 1
+        rq, rp = self.ring_q, self.ring_p
+        return self._map(lambda x: modops.bred_add_lazy(x, rq.q[:lq], rq.bred_hi[:lq]),
+                         lambda x: modops.bred_add_lazy(x, rp.q, rp.bred_hi), a)
 
     def mul_scalar(self, a: QPPoly, scalar: int,
                    level_q: int | None = None) -> QPPoly:

@@ -49,3 +49,12 @@ def div_by_last_modulus(ring, a, level: int | None = None,
     return modops.mred(diff, ring.rescale_constants[level, :level],
                        ring.q[:level], ring.qinv[:level], ring.small)
 
+
+def div_by_last_modulus_many(ring, a, k: int, level: int | None = None,
+                             ntt_domain: bool = False, round_div: bool = True):
+    """Drop the last k moduli by k exact divisions: [l+1, N] → [l+1-k, N]."""
+    level = ring.max_level if level is None else level
+    for j in range(k):
+        a = div_by_last_modulus(ring, a, level - j, ntt_domain=ntt_domain,
+                                round_div=round_div)
+    return a

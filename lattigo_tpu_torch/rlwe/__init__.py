@@ -12,7 +12,9 @@ from lattigo_tpu_torch.rlwe.keys import (
     EvaluationKey, RelinearizationKey, GaloisKey, KeyGenerator,
     EvaluationKeySet, compress_gadget,
 )
-from lattigo_tpu_torch.rlwe.errors import MissingGaloisKeyError, MissingKeyError
+from lattigo_tpu_torch.rlwe.errors import (
+    MissingGaloisKeyError, MissingKeyError, MissingRelinearizationKeyError,
+)
 from lattigo_tpu_torch.rlwe.encryption import Encryptor, Decryptor, add_plaintext
 from lattigo_tpu_torch.rlwe.evaluator import Evaluator
 
@@ -22,5 +24,7 @@ __all__ = [
     "Ciphertext", "Plaintext", "ciphertext_from_polys",
     "SecretKey", "PublicKey", "GadgetCiphertext", "CompressedGadgetCiphertext",
     "EvaluationKey", "compress_gadget", "RelinearizationKey", "GaloisKey",
-    "KeyGenerator", "EvaluationKeySet", "MissingGaloisKeyError", "MissingKeyError", "Encryptor", "Decryptor", "add_plaintext", "Evaluator",
+    "KeyGenerator", "EvaluationKeySet", "MissingGaloisKeyError", "MissingKeyError",
+    "MissingRelinearizationKeyError", "Encryptor", "Decryptor", "add_plaintext",
+    "Evaluator",
 ]

@@ -2,6 +2,7 @@
 
 Counterpart of :mod:`lattigo_tpu.rlwe.errors`: a missing key is a user
 error whose message says which key is missing and how to generate it.
+Both classes are :class:`MissingKeyError`, so a ``KeyError``.
 """
 
 from __future__ import annotations
@@ -15,9 +16,18 @@ class MissingKeyError(KeyError):
 
 
 class MissingGaloisKeyError(MissingKeyError):
-    def __init__(self, gal_el: int):
+    def __init__(self, gal_el: int, rotation: int | None = None):
         self.gal_el = gal_el
+        self.rotation = rotation
+        hint = "" if rotation is None else f" (slot rotation by {rotation})"
         super().__init__(
-            f"GaloisKey for element {gal_el} is missing from the "
+            f"GaloisKey for element {gal_el}{hint} is missing from the "
             f"EvaluationKeySet — generate it with "
             f"KeyGenerator.gen_galois_keys(gen, [{gal_el}], sk)")
+
+
+class MissingRelinearizationKeyError(MissingKeyError):
+    def __init__(self):
+        super().__init__(
+            "RelinearizationKey is missing from the EvaluationKeySet — "
+            "generate it with KeyGenerator.gen_relinearization_key(gen, sk)")

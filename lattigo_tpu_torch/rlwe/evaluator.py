@@ -1,12 +1,13 @@
 """Scheme-generic RLWE evaluator: gadget product, relinearization,
 automorphisms, hoisted rotations, trace and inner sums.
 
-Counterpart of :mod:`lattigo_tpu.rlwe.evaluator` (the power-of-two gadget
-product waits for the base-2 gadget).
+Counterpart of :mod:`lattigo_tpu.rlwe.evaluator`.
 The gadget product is a digit-unrolled Montgomery MAC over NTT-domain QP
 tensors, reduced lazily (a flush every ``margin`` terms, with the margin
 derived from 2^63), ending in one ModDown by P. The decomposition is
 hoistable: :meth:`Evaluator.decompose_ntt` returns the digit tensor once.
+A power-of-two gadget (``gadget.base2`` > 0) takes
+:meth:`Evaluator.gadget_product_base2` instead, with or without P.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from lattigo_tpu_torch.ring import automorphism as auto_mod, modops
 from lattigo_tpu_torch.ring.ring import STANDARD
 from lattigo_tpu_torch.ring.ringqp import QPPoly
 from lattigo_tpu_torch.rlwe.elements import Ciphertext
+from lattigo_tpu_torch.rlwe.errors import MissingRelinearizationKeyError
 from lattigo_tpu_torch.rlwe.keys import (
     EvaluationKeySet, GadgetCiphertext, RelinearizationKey,
 )
@@ -71,8 +73,53 @@ class Evaluator:
         return self.params.basis_extender.mod_down_qp_to_q(
             acc.q, acc.p, level_q, ntt_domain=True)
 
+    def gadget_product_base2(self, c2_ntt, gadget: GadgetCiphertext,
+                             level_q: int):
+        """Power-of-two gadget product: the digits are w-bit slices of each
+        limb's canonical coefficients, lifted to every limb as they are
+        (a digit < 2^w < q), NTT'd in one batched call per ring and MAC'd
+        against the (limb, digit) rows; the rows are summed lazily with a
+        Barrett fold before 2^63 (61-bit primes pass it after a few rows),
+        then ModDown by P when the gadget has a P part. A key made at a
+        higher level is sliced to ``level_q``'s limbs and rows."""
+        p = self.params
+        rq = p.ring_q
+        lq = level_q + 1
+        w = gadget.base2
+        evq, evp = gadget.value.q, gadget.value.p   # [rows, 2, LQ | LP, N]
+        if evq.shape[-2] < lq:
+            raise ValueError(f"evaluation key generated at level "
+                             f"{evq.shape[-2] - 1} used at level {level_q}")
+        max_dig = evq.shape[-4] // evq.shape[-2]
+        rows = lq * max_dig
+        cx = rq.intt(c2_ntt, level_q)                # canonical, < 2^61
+        shifts = torch.arange(max_dig, device=cx.device) * w
+        digits = (cx[..., :, None, :] >> shifts[:, None]) & ((1 << w) - 1)
+        dflat = digits.reshape(digits.shape[:-3] + (rows, 1, digits.shape[-1]))
+        moduli = p.q_moduli[:lq] + p.p_moduli
+        margin = modops.margin_for(max(moduli))
+
+        def mac(ring, ev, limbs: int):
+            """Σ_r NTT(digit_r) · ev_r over the ring's first ``limbs``."""
+            q, bhi = ring.q[:limbs], ring.bred_hi[:limbs]
+            d = ring.ntt(dflat.expand(dflat.shape[:-2] + (limbs, dflat.shape[-1])),
+                         limbs - 1)
+            t = modops.mred_lazy(d[..., :, None, :, :], ev, q, ring.qinv[:limbs],
+                                 ring.small)
+            acc = modops.lazy_tree_sum(torch.movedim(t, -4, 0), q, bhi, margin)
+            return modops.bred_add(acc, q, bhi)
+
+        acc_q = mac(rq, evq[:rows, :, :lq, :], lq)
+        if evp is None:
+            return acc_q
+        acc_p = mac(p.ring_p, evp[:rows], len(p.p_moduli))
+        return p.basis_extender.mod_down_qp_to_q(acc_q, acc_p, level_q,
+                                                 ntt_domain=True)
+
     def gadget_product(self, c2_ntt, gadget: GadgetCiphertext, level_q: int):
         """(d0, d1) ← c2 ⊛ gadget: int64[..., lq+1, N] → [..., 2, lq+1, N]."""
+        if gadget.base2:
+            return self.gadget_product_base2(c2_ntt, gadget, level_q)
         return self.gadget_product_hoisted(
             self.decompose_ntt(c2_ntt, level_q), gadget, level_q)
 
@@ -81,7 +128,7 @@ class Evaluator:
         """Degree-d → degree-1 by iterated key switching."""
         rlk = rlk if rlk is not None else self.evk.relinearization_key
         if rlk is None:
-            raise ValueError("relinearize needs a relinearization key")
+            raise MissingRelinearizationKeyError()
         if not ct.is_ntt:
             raise ValueError("relinearize expects NTT-domain ciphertexts")
         level = ct.level

@@ -12,6 +12,10 @@ on rows [d·alpha, (d+1)·alpha) and 0 elsewhere. Many keys of one shape are
 drawn at once on a leading batch axis (``batch``): a gadget ciphertext's
 value is then ``[*batch, beta, 2, LQ, N]`` and :func:`unstack_gadgets`
 splits it.
+
+The power-of-two gadget (``base2`` = w > 0, for |P| ≤ 1, P-less key
+switching included) has one row per (limb i, digit j), at i·max_digits + j,
+with gadget factor P·2^{w·j} on limb i and 0 elsewhere.
 """
 
 from __future__ import annotations
@@ -53,15 +57,20 @@ class GadgetCiphertext:
 
     Row (d, 0) = -a_d·s + e_d + m·g_d, row (d, 1) = a_d, NTT + Montgomery
     (the RGSW half made with ``row=1`` carries m·g_d on row (d, 1) instead).
+
+    ``base2`` > 0 selects the power-of-two gadget: rows (limb i, digit j) at
+    i·max_digits + j with gadget factor P·2^{base2·j} on limb i.
     """
 
     value: QPPoly
+    base2: int = 0
 
 
 def unstack_gadgets(g: GadgetCiphertext) -> list[GadgetCiphertext]:
     """Split a batch of gadget ciphertexts ([B, beta, 2, L, N]) into B."""
     p = g.value.p
-    return [GadgetCiphertext(QPPoly(g.value.q[i], None if p is None else p[i]))
+    return [GadgetCiphertext(QPPoly(g.value.q[i], None if p is None else p[i]),
+                             g.base2)
             for i in range(g.value.q.shape[0])]
 
 
@@ -73,6 +82,7 @@ class CompressedGadgetCiphertext:
 
     c0: QPPoly
     seed: bytes = b""
+    base2: int = 0
 
     def expand(self, params: Parameters) -> GadgetCiphertext:
         level_q = self.c0.q.shape[-2] - 1
@@ -81,7 +91,7 @@ class CompressedGadgetCiphertext:
         rows = [qp_stack([QPPoly(self.c0.q[..., d, :, :],
                                  None if self.c0.p is None else self.c0.p[..., d, :, :]),
                           c1[d]]) for d in range(beta)]
-        return GadgetCiphertext(qp_stack(rows))
+        return GadgetCiphertext(qp_stack(rows), self.base2)
 
 
 def compress_gadget(gadget: GadgetCiphertext,
@@ -91,7 +101,7 @@ def compress_gadget(gadget: GadgetCiphertext,
     p = gadget.value.p
     return CompressedGadgetCiphertext(
         c0=QPPoly(gadget.value.q[..., 0, :, :], None if p is None else p[..., 0, :, :]),
-        seed=seed)
+        seed=seed, base2=gadget.base2)
 
 
 def keyed_uniform_qp(params: Parameters, seed: bytes, count: int,
@@ -188,10 +198,57 @@ class KeyGenerator:
         q[..., lo:hi, :] = modops.add_mod(q[..., lo:hi, :], term, rq.q[lo:hi])
         return QPPoly(q, x.p)
 
+    def _gadget_scalars_base2(self, level_q: int, w: int) -> torch.Tensor:
+        """MForm(P·2^{w·j} mod q_i) for row (i, j), int64[rows, lq+1, 1];
+        zero on limbs ≠ i and on digits past ceil(log2 q_i / w) (those
+        digits of any value < q_i are zero anyway)."""
+        p = self.params
+        P = p.p_big_int() if p.ring_p is not None else 1
+        lq = level_q + 1
+        moduli = p.q_moduli[:lq]
+        max_dig = -(-max((q - 1).bit_length() for q in moduli) // w)
+        g = [[0] * lq for _ in range(lq * max_dig)]
+        for i, q in enumerate(moduli):
+            for j in range(-(-(q - 1).bit_length() // w)):
+                g[i * max_dig + j][i] = _mform_int((P << (w * j)) % q, q)
+        return u64_tensor(g, p.device, (lq * max_dig, lq, 1))
+
+    def gadget_encrypt_base2(self, gen: torch.Generator, m_q, sk_out: SecretKey,
+                             base2: int, level_q: int | None = None
+                             ) -> GadgetCiphertext:
+        """Power-of-two gadget encryption of m (Q part, NTT + Montgomery):
+        every row drawn at once, row r = (−a_r·s + e_r + m·g_r, a_r). The
+        rows past a limb's digit count are zero: they would multiply digits
+        that are zero, and Lattigo's byte layout has no such rows, so a key
+        read from bytes equals the key written."""
+        p = self.params
+        if len(p.p_moduli) > 1:
+            raise ValueError("the base-2 gadget needs |P| <= 1")
+        level_q = p.max_level if level_q is None else level_q
+        lq = level_q + 1
+        rqp, rq = p.ring_qp, p.ring_q
+        gfac = self._gadget_scalars_base2(level_q, base2)     # [rows, lq, 1]
+        rows = (gfac.shape[0],)
+        a = rqp.uniform(gen, level_q, rows)
+        c1 = rqp.mform(a, level_q)
+        a_s = rqp.mul_mont(a, rqp.at_level(sk_out.value, level_q), level_q)
+        e = rqp.ntt(rqp.sample_signed(gen, p.xe, level_q, rows), level_q)
+        c0 = rqp.mform(rqp.sub(e, a_s, level_q), level_q)
+        q = rq.q[:lq]
+        term = modops.mred(m_q[..., None, :lq, :], gfac, q, rq.qinv[:lq], rq.small)
+        c0 = QPPoly(modops.add_mod(c0.q, term, q), c0.p)
+        value = qp_stack([c0, c1], dim=-3)
+        pad = (gfac == 0).all(dim=-2)[:, 0]        # rows of no digit
+        value.q[pad] = 0
+        if value.p is not None:
+            value.p[pad] = 0
+        return GadgetCiphertext(value, base2)
+
     def gadget_encrypt(self, gen: torch.Generator, m_q, sk_out: SecretKey,
                        level_q: int | None = None, row: int = 0,
                        batch: tuple[int, ...] = (),
-                       seed: bytes | None = None) -> GadgetCiphertext:
+                       seed: bytes | None = None,
+                       base2: int = 0) -> GadgetCiphertext:
         """Gadget-encrypt m (Q part, NTT + Montgomery, int64[..., lq+1, N]).
 
         ``row`` selects the component that carries m·g: 0 (evaluation keys)
@@ -200,12 +257,19 @@ class KeyGenerator:
         against them. With ``seed`` the uniform c1 rows come from the
         :class:`~lattigo_tpu_torch.ring.sampling.KeyedPRNG`, so the result
         ships compressed (:func:`compress_gadget`); it needs ``row == 0``
-        and no batch.
+        and no batch. ``base2`` > 0 switches to the power-of-two gadget
+        (:meth:`gadget_encrypt_base2`: ``row == 0``, no seed, no batch).
         """
         p = self.params
+        if base2 > 0:
+            if row != 0 or seed is not None or batch:
+                raise ValueError("the base-2 gadget needs row == 0, no seed "
+                                 "and no batch")
+            return self.gadget_encrypt_base2(gen, m_q, sk_out, base2, level_q)
         if p.ring_p is None:
             raise NotImplementedError(
-                "RNS gadget encryption requires an auxiliary P basis")
+                "RNS gadget encryption requires an auxiliary P basis "
+                "(use base2 > 0 for P-less key switching)")
         if row not in (0, 1):
             raise ValueError(f"row must be 0 or 1, got {row}")
         if seed is not None and (row != 0 or batch):
@@ -238,15 +302,18 @@ class KeyGenerator:
         return GadgetCiphertext(qp_stack(rows, dim=-4))
 
     def gen_evaluation_key(self, gen: torch.Generator, sk_in: SecretKey,
-                           sk_out: SecretKey) -> EvaluationKey:
-        """Key re-encrypting from sk_in to sk_out."""
-        return EvaluationKey(self.gadget_encrypt(gen, sk_in.value.q, sk_out))
+                           sk_out: SecretKey, base2: int = 0) -> EvaluationKey:
+        """Key re-encrypting from sk_in to sk_out (``base2`` > 0: the
+        power-of-two gadget)."""
+        return EvaluationKey(self.gadget_encrypt(gen, sk_in.value.q, sk_out,
+                                                 base2=base2))
 
-    def gen_relinearization_key(self, gen: torch.Generator,
-                                sk: SecretKey) -> RelinearizationKey:
-        """Gadget encryption of s² under s."""
+    def gen_relinearization_key(self, gen: torch.Generator, sk: SecretKey,
+                                base2: int = 0) -> RelinearizationKey:
+        """Gadget encryption of s² under s (``base2`` > 0: the power-of-two
+        gadget)."""
         s2 = self.params.ring_q.mul_mont(sk.value.q, sk.value.q)
-        return RelinearizationKey(self.gadget_encrypt(gen, s2, sk))
+        return RelinearizationKey(self.gadget_encrypt(gen, s2, sk, base2=base2))
 
     def gen_galois_key(self, gen: torch.Generator, gal_el: int,
                        sk: SecretKey) -> GaloisKey:
@@ -277,7 +344,9 @@ class KeyGenerator:
             return {}
         if p.ring_p is None:
             raise NotImplementedError(
-                "Galois keys need the RNS gadget, which needs a P basis")
+                "Galois keys need the RNS gadget, which needs an auxiliary "
+                "P basis (P-less parameters key-switch only with base2 > 0 "
+                "evaluation and relinearization keys)")
         by_level: dict[int, list[int]] = {}
         for g in gal_els:
             lvl = p.max_level if levels is None else levels.get(g, p.max_level)

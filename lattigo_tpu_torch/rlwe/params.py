@@ -9,7 +9,9 @@ draws them, so the same literal gives the same chains.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import json
+import math
+from dataclasses import asdict, dataclass
 
 from lattigo_tpu_torch.device import resolve_device
 from lattigo_tpu_torch.ring.basis_extension import BasisExtender, Decomposer
@@ -41,6 +43,30 @@ class ParametersLiteral:
     ring_type: str = STANDARD
     ntt_flag: bool = True
     default_scale: float = 1.0
+
+    def to_json(self) -> str:
+        """Every field (a scheme's own ones too) as JSON, each distribution
+        as {"type": class name, **fields}: the JAX package's text."""
+        d = asdict(self)
+        d["xe"] = {"type": type(self.xe).__name__, **getattr(self.xe, "__dict__", {})}
+        d["xs"] = {"type": type(self.xs).__name__, **getattr(self.xs, "__dict__", {})}
+        return json.dumps(d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ParametersLiteral":
+        """Inverse of :meth:`to_json`, as an instance of ``cls``: a BGV or
+        CKKS literal reads its own fields back (``t``,
+        ``log_default_scale``)."""
+        d = json.loads(s)
+        dists = {"DiscreteGaussian": DiscreteGaussian, "Ternary": Ternary,
+                 "Uniform": Uniform}
+        for k in ("xe", "xs"):
+            spec = dict(d[k])
+            d[k] = dists[spec.pop("type")](**spec)
+        for k in ("q", "p", "log_q", "log_p"):
+            if d.get(k) is not None:
+                d[k] = tuple(d[k])
+        return cls(**d)
 
 
 def gen_moduli(log_n: int, nth_root: int, log_q: tuple[int, ...],
@@ -99,6 +125,11 @@ class Parameters:
     def max_level(self) -> int:
         return len(self.q_moduli) - 1
 
+    @property
+    def max_level_p(self) -> int:
+        """|P| − 1: −1 for a parameter set with no P basis."""
+        return len(self.p_moduli) - 1
+
     def q_big_int(self, level: int | None = None) -> int:
         return self.ring_q.modulus_at_level(
             self.max_level if level is None else level)
@@ -108,6 +139,27 @@ class Parameters:
         for p in self.p_moduli:
             r *= p
         return r
+
+    def log_q_big(self, level: int | None = None) -> int:
+        """Bit length of Q at ``level``."""
+        return self.q_big_int(level).bit_length()
+
+    # -- noise ---------------------------------------------------------------
+
+    def noise_fresh_sk(self) -> float:
+        """σ of fresh secret-key encryption noise."""
+        return getattr(self.xe, "sigma", 3.2)
+
+    def noise_fresh_pk(self) -> float:
+        """σ of fresh public-key encryption noise: σ·sqrt(h + 2), h the
+        secret's expected Hamming weight."""
+        sigma = getattr(self.xe, "sigma", 3.2)
+        if isinstance(self.xs, Ternary):
+            h = (self.xs.hamming_weight if self.xs.hamming_weight
+                 else int(self.n * (1 - self.xs.p)))
+        else:
+            h = self.n
+        return sigma * math.sqrt(h + 2.0)
 
     # -- Galois elements -----------------------------------------------------
 
@@ -133,3 +185,15 @@ class Parameters:
                 f"logQ={[q.bit_length() for q in self.q_moduli]}, "
                 f"logP={[p.bit_length() for p in self.p_moduli]}, "
                 f"device={self.device})")
+
+    def __eq__(self, other) -> bool:
+        """Equal degree, chains and ring type (on any device)."""
+        return (isinstance(other, Parameters)
+                and self.n == other.n
+                and self.q_moduli == other.q_moduli
+                and self.p_moduli == other.p_moduli
+                and self.ring_type == other.ring_type)
+
+    def __hash__(self) -> int:
+        return hash((self.n, tuple(self.q_moduli), tuple(self.p_moduli),
+                     self.ring_type))

@@ -39,6 +39,8 @@ def test_port_imports_no_jax():
     assert "lattigo_tpu_torch.utils.cosine" in mods
     assert "lattigo_tpu_torch.utils.minimax" in mods
     assert "lattigo_tpu_torch.utils.ddarith" in mods
+    for m in ("lattigo_wire", "serialization", "noise"):
+        assert "lattigo_tpu_torch.utils." + m in mods
     for m in ("", ".protocols", ".threshold", ".additive_shares", ".sharing",
               ".sharing_bgv"):
         assert "lattigo_tpu_torch.multiparty" + m in mods
