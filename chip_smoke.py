@@ -1681,6 +1681,20 @@ def ring_inputs(n_ci: int, slots: int) -> dict:
     return dict(a=a, b=b, z=z, m=m)
 
 
+def wire_inputs(n: int, t: int, slots: int) -> dict:
+    """Phase 10's seeded numpy inputs, in one draw order (the JAX package's
+    precision run in ``tests/test_torch_wire.py`` reads them too): the BGV
+    request's a and b (BATCH x n in [0, t)), then the CKKS request's za and
+    zb (BATCH x slots complex values in [-1, 1) + [-1, 1)i)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    a = rng.integers(0, t, (BATCH, n))
+    b = rng.integers(0, t, (BATCH, n))
+    za = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
+    zb = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
+    return dict(a=a, b=b, za=za, zb=zb)
+
+
 def exact_coeffs(params, sk, ct) -> "np.ndarray":
     """The decrypted coefficients of ct (one polynomial or a batch) over
     RP_DELTA, rounded: centred from the first two limbs by CRT, which holds
@@ -2162,7 +2176,6 @@ def wire_flow(device, log_n: int = LOG_N):
         return cts[0].replace(value=torch.stack([c.value for c in cts]))
 
     gen = torch.Generator(device=device).manual_seed(SEED * 10)
-    rng = np.random.default_rng(SEED)
 
     # 10a set-up: the client's parameters and keys, the server's from bytes
     client = bgv.Parameters(presets.bgv_tpu_params(log_n, LOG_QP), device=device)
@@ -2185,8 +2198,8 @@ def wire_flow(device, log_n: int = LOG_N):
     ev_s = bgv.Evaluator(server, rlwe.EvaluationKeySet(rlk_s, {g1: gk_s}))
     encoder, encryptor = bgv.Encoder(client), rlwe.Encryptor(client, sk)
     decryptor = rlwe.Decryptor(client, sk)
-    a = rng.integers(0, client.t, (BATCH, n))
-    b = rng.integers(0, client.t, (BATCH, n))
+    x = wire_inputs(n, client.t, n // 2)
+    a, b = x["a"], x["b"]
     ab = a * b % client.t
     half = n // 2
     want_bgv = np.concatenate([np.roll(ab[:, :half], -1, axis=-1),
@@ -2292,9 +2305,8 @@ def wire_flow(device, log_n: int = LOG_N):
     ser_stats = (len(blob), (t1 - t0) * 1e3, (t2 - t1) * 1e3)
     ev_c = ckks.Evaluator(cp, keys_s)
     enc_c, encr_c, dec_c = ckks.Encoder(cp), rlwe.Encryptor(cp, skc), rlwe.Decryptor(cp, skc)
-    slots = cp.max_slots
-    za = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
-    zb = rng.uniform(-1, 1, (BATCH, slots)) + 1j * rng.uniform(-1, 1, (BATCH, slots))
+    check(cp.max_slots == x["za"].shape[-1], "10c: slot count != the inputs'")
+    za, zb = x["za"], x["zb"]
     want_c = np.roll(za * zb, -1, axis=-1)
     cdims = (0, cp.log_max_slots)
 

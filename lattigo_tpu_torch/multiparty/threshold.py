@@ -12,6 +12,8 @@ the recombined shares plug into every protocol.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from lattigo_tpu_torch.ring import modops
@@ -21,11 +23,11 @@ from lattigo_tpu_torch.rlwe.keys import SecretKey
 from lattigo_tpu_torch.rlwe.params import Parameters
 
 
+@dataclass
 class ShamirPolynomial:
     """coeffs[0] = the secret, coeffs[1..t-1] uniform in R_QP (M-form)."""
 
-    def __init__(self, coeffs: list[QPPoly]):
-        self.coeffs = coeffs
+    coeffs: list[QPPoly]
 
 
 class Thresholdizer:

@@ -4,10 +4,13 @@ Counterpart of :mod:`lattigo_tpu.utils.serialization`, with the same
 ``dumps`` / ``loads`` / ``save`` / ``load``. The JAX package pickles a JAX
 tree definition, which the port cannot read, so this is the port's own
 container: one ``.npz`` holding every tensor and array, and beside them
-the structure as JSON (the port's classes by name with their fields,
-dicts, lists, tuples, integers, ``Fraction`` scales, seeds). Loading imports no class
-outside ``lattigo_tpu_torch`` and unpickles nothing; tensors come back on
-the device the caller names. The two packages exchange objects through
+the structure as JSON (the port's dataclasses by name with their fields,
+dicts, lists, tuples, integers, ``Fraction`` scales, seeds). Loading
+unpickles nothing and builds no object but a dataclass that a module of
+``lattigo_tpu_torch`` defines at its top level, through that class's own
+constructor; any other class name in the blob is refused with
+``ValueError``. Tensors come back on the device the caller names. The
+two packages exchange objects through
 :mod:`lattigo_tpu_torch.utils.lattigo_wire`, not through this.
 """
 
@@ -47,34 +50,46 @@ def _encode(obj, arrays: list):
         return {"dict": [[_encode(k, arrays), _encode(v, arrays)]
                          for k, v in obj.items()]}
     cls = type(obj)
-    if cls.__module__.split(".")[0] == _PACKAGE:
-        name = f"{cls.__module__}:{cls.__qualname__}"
-        if dataclasses.is_dataclass(obj):
-            return {"class": name,
-                    "fields": {f.name: _encode(getattr(obj, f.name), arrays)
-                               for f in dataclasses.fields(obj) if f.init}}
-        # a plain class (a Shamir polynomial): its attributes
-        return {"class": name, "state": {k: _encode(v, arrays)
-                                         for k, v in vars(obj).items()}}
+    name = f"{cls.__module__}:{cls.__qualname__}"
+    if dataclasses.is_dataclass(obj) and _resolve(name) is cls:
+        return {"class": name,
+                "fields": {f.name: _encode(getattr(obj, f.name), arrays)
+                           for f in dataclasses.fields(obj) if f.init}}
     raise TypeError(f"cannot serialize a {cls.__name__}")
+
+
+def _resolve(name):
+    """The dataclass that ``module:Name`` names, or None. Only a module of
+    the package and a class that it defines at its top level qualify."""
+    module, _, qualname = str(name).partition(":")
+    if not (module == _PACKAGE or module.startswith(_PACKAGE + ".")):
+        return None
+    if not qualname.isidentifier() or not all(
+            part.isidentifier() for part in module.split(".")):
+        return None
+    try:
+        cls = getattr(importlib.import_module(module), qualname, None)
+    except ImportError:
+        return None
+    if (isinstance(cls, type) and dataclasses.is_dataclass(cls)
+            and cls.__module__ == module and cls.__qualname__ == qualname):
+        return cls
+    return None
 
 
 def _decode(node, arrays, device):
     if not isinstance(node, dict):
         return node
     if "class" in node:
-        module, qualname = node["class"].split(":")
-        if module != _PACKAGE and not module.startswith(_PACKAGE + "."):
-            raise ValueError(f"refusing to load class {node['class']}")
-        cls = importlib.import_module(module)
-        for part in qualname.split("."):
-            cls = getattr(cls, part)
-        if "fields" in node:
-            return cls(**{k: _decode(v, arrays, device) for k, v in node["fields"].items()})
-        obj = object.__new__(cls)
-        obj.__dict__.update({k: _decode(v, arrays, device)
-                             for k, v in node["state"].items()})
-        return obj
+        cls = _resolve(node["class"])
+        fields = node.get("fields")
+        if cls is None or set(node) != {"class", "fields"} or not isinstance(fields, dict):
+            raise ValueError(f"refusing to load class {node['class']!r}")
+        names = {f.name for f in dataclasses.fields(cls) if f.init}
+        if not set(fields) <= names:
+            raise ValueError(f"unknown fields {sorted(set(fields) - names)} "
+                             f"for {node['class']!r}")
+        return cls(**{k: _decode(v, arrays, device) for k, v in fields.items()})
     ((kind, val),) = node.items()
     if kind == "tensor":
         return torch.from_numpy(arrays[f"a{val}"]).to(device)

@@ -7,7 +7,10 @@ BGV presets, the rest of the public ring API and the missing-key errors.
 - ``noise_fresh_sk`` / ``noise_fresh_pk``, ``log_q_big``, ``max_level_p``,
   equality and hashing equal the JAX package's;
 - ``utils.serialization`` round-trips every kind of object bit for bit, and
-  a restored ciphertext decrypts;
+  a restored ciphertext decrypts; a blob that names anything but a dataclass
+  of the port (a function reached through a dotted name, a class outside the
+  package, a plain class of the package) is refused with ``ValueError`` and
+  runs nothing;
 - ``log2_noise_std`` of one ciphertext (the port's, carried across) equal in
   both packages to 1e-9;
 - the BGV and BGV-SI presets draw the JAX package's primes;
@@ -185,6 +188,46 @@ def test_serialization_roundtrip(bgv_ctx, tmp_path):
         ser.dumps(params)
     with pytest.raises(TypeError):
         ser.dumps(object())
+
+
+def forged_blob(node) -> bytes:
+    """A container in :mod:`utils.serialization`'s layout with ``node`` as its
+    structure and no arrays, as a hostile peer could send it."""
+    import io
+    import json
+    buf = io.BytesIO()
+    np.savez(buf, structure=np.frombuffer(json.dumps(node).encode(), dtype=np.uint8))
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("name", [
+    "lattigo_tpu_torch.build:subprocess.run",       # a dotted walk to a function
+    "subprocess:run",                              # outside the package
+    "pathlib:Path",                                # a class outside the package
+    "lattigo_tpu_torch.build:subprocess",          # a module, not a class
+    "lattigo_tpu_torch.rlwe.params:Parameters",    # a plain class of the package
+    "lattigo_tpu_torch.rlwe.keys:QPPoly",          # imported, not defined there
+    "lattigo_tpu_torch.rlwe.elements:Ciphertext.__init__",
+])
+@pytest.mark.parametrize("body", ["fields", "state"])
+def test_serialization_refuses_forged_class(name, body, tmp_path):
+    marker = tmp_path / "ran"
+    argv = ["sh", "-c", f"touch {marker}"]
+    node = {"class": name, body: {"args": {"list": argv}}}
+    with pytest.raises(ValueError):
+        ser.loads(forged_blob(node), device="cpu")
+    with pytest.raises(ValueError):               # nested inside a list
+        ser.loads(forged_blob({"list": [1, node]}), device="cpu")
+    assert not marker.exists()
+
+
+def test_serialization_refuses_unknown_fields():
+    node = {"class": "lattigo_tpu_torch.rlwe.keys:SecretKey",
+            "fields": {"value": None, "extra": 1}}
+    with pytest.raises(ValueError):
+        ser.loads(forged_blob(node), device="cpu")
+    ok = {"class": "lattigo_tpu_torch.rlwe.keys:SecretKey", "fields": {"value": 7}}
+    assert ser.loads(forged_blob(ok), device="cpu") == rlwe.SecretKey(7)
 
 
 # -- noise telemetry ---------------------------------------------------------------

@@ -277,3 +277,61 @@ def test_sizes_follow_lattigo_layout(ctx):
     assert not q[[4 * i + 3 for i in (1, 2)]].any() and q[[3]].any()
     with pytest.raises(ValueError):
         twire.relinearization_key_to_bytes(rlk)
+
+
+# -- the JAX package's precision on chip_smoke.py phase 10c ----------------------------
+
+def reference_phase10c_bits(log_n: int = 14) -> tuple:
+    """The JAX package's precision (min, avg bits) on chip_smoke.py phase
+    10c's CKKS request, rotate(rescale(mul_relin(a, b)), 1) at
+    ``ckks_tpu_params(log_n, 438)``, on that phase's inputs (its own keys).
+    The wire does not enter: phase 10c checks that the bytes change no
+    decoded slot. Everything but the host decode runs under one
+    ``jax.jit``."""
+    import sys
+    import time
+    from pathlib import Path
+
+    import jax
+
+    from lattigo_tpu import presets as jpresets, rlwe as jrlwe
+    from lattigo_tpu.schemes import ckks as jckks
+    from lattigo_tpu.schemes.ckks.precision import get_precision_stats
+
+    here = Path(__file__).resolve().parent
+    sys.path[:0] = [str(here.parent), str(here)]
+    import chip_smoke as cs
+    from test_torch_ci_ring import FAST_COMPILE, jit_gadget_products
+
+    t0 = time.time()
+    p = jckks.Parameters(jpresets.ckks_tpu_params(log_n, cs.LOG_QP))
+    x = cs.wire_inputs(1 << log_n, 65537, p.max_slots)
+    enc, rot = jckks.Encoder(p), p.galois_element(1)
+    scale = {}
+
+    def run(key):
+        k = jax.random.split(key, 5)
+        kg = jrlwe.KeyGenerator(p)
+        sk = kg.gen_secret_key(k[0])
+        ev = jit_gadget_products(jckks.Evaluator(p, jrlwe.EvaluationKeySet(
+            kg.gen_relinearization_key(k[1], sk), {rot: kg.gen_galois_key(k[2], rot, sk)})))
+        encr = jrlwe.Encryptor(p, sk)
+        ca = encr.encrypt(k[3], enc.encode(x["za"]), batch=(cs.BATCH,))
+        cb = encr.encrypt(k[4], enc.encode(x["zb"]), batch=(cs.BATCH,))
+        out = ev.rotate(ev.rescale(ev.mul_relin(ca, cb)), 1)
+        scale["out"] = Fraction(out.scale)
+        pt = jrlwe.Decryptor(p, sk).decrypt(out)
+        return p.ring_q.intt(pt.value, pt.level)
+
+    coeffs = np.asarray(jax.jit(run, compiler_options=FAST_COMPILE)(
+        jax.random.PRNGKey(cs.SEED)))
+    print(f"JAX program {time.time() - t0:.0f} s", flush=True)
+    got = np.stack([enc.decode(jrlwe.Plaintext(value=c, is_ntt=False, scale=scale["out"]))
+                    for c in coeffs])
+    st = get_precision_stats(np.roll(x["za"] * x["zb"], -1, axis=-1), got)
+    return st.min_precision, st.avg_precision
+
+
+if __name__ == "__main__":
+    import sys
+    print(reference_phase10c_bits(int(sys.argv[1]) if len(sys.argv) > 1 else 14))
