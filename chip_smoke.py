@@ -6,7 +6,8 @@
 Phases (one line each; any failure exits non-zero before the result):
 
 1. build every CUDA kernel of the paths from ``lattigo_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together);
+   and the native host XOF (one ``nvcc`` or ``g++`` per source, started
+   together);
 2. hold each kernel bit for bit against its plain torch version on the card,
    lazy and not, through a non-zero limb offset too, and NTT then INTT as
    the identity; time kernel and plain version with CUDA events:
@@ -23,7 +24,8 @@ Phases (one line each; any failure exits non-zero before the result):
    against numpy's a*b mod T; the kernels' launch counts are zeroed just
    before and read just after, and every distinct kernel call of that run
    is held against the plain version on its own input (each printed with
-   its split); then the step is timed after a warm-up and profiled once,
+   its split), and the ModUp digit-matmul contractions of that run counted;
+   then the step is timed after a warm-up and profiled once,
    which gives the four-step kernels' device time per launch;
 4. LMKCDEY blind rotation at Lattigo's blind-rotation parameters (BR ring
    logN 10, Q = 0x7fff801, P = 536881153; LWE ring logN 9, Q = 0x3001):
@@ -60,8 +62,9 @@ Phases (one line each; any failure exits non-zero before the result):
    top level, decrypted collectively and held at a precision floor set
    from the JAX package's result less a bit. Launch counts zeroed before
    and read after, every distinct four-step call held against the plain
-   version; per protocol the ms of gen_share (per party), aggregate and
-   finalize and its four-step launches; the CRPs' host ms; the step and
+   version, the ModUp digit-matmul contractions of the run counted; per
+   protocol the ms of gen_share (per party), aggregate and finalize and its
+   four-step launches; the CRPs' host ms (the native XOF); the step and
    the request timed; peak device memory; the collective relinearization
    key generation and the request profiled;
 7. CKKS bootstrapping at the published preset ``N15QP768_H192_H32``, full
@@ -73,13 +76,15 @@ Phases (one line each; any failure exits non-zero before the result):
    card, and the DFT matrices, each timed; one input of uniform complex
    slots from a numpy seed, encrypted and dropped to the minimum input
    level; one untimed warm-up bootstrap with its dispatched torch ops
-   counted (and those inside the radix-2 NTT); then one bootstrap timed by
+   counted (and those inside the NTT engine, with its calls); then one
+   bootstrap timed by
    stage (ScaleDown + encapsulation + ModUp, C2S, EvalMod on each half,
    S2C, each ending in a synchronize), equal to the warm-up's output,
    decrypted, decoded and held at a precision floor set from the JAX
    package's full-degree result less a bit; the rings' NTT engine
-   (radix2-plain: no kernel of this repository runs here, and the kernels'
-   launch counts over the bootstrap must be 0); the output level and
+   (mxu64-plain, the u64 four-step engine of library matmuls: no kernel of
+   this repository runs here, and the kernels' launch counts over the
+   bootstrap must be 0); the output level and
    scale; peak device memory; one EvalMod half profiled (device kernels,
    busy us, idle share, the top three kernel families);
 8. the remaining circuits, every earlier phase's tensors freed and the
@@ -87,8 +92,9 @@ Phases (one line each; any failure exits non-zero before the result):
    batch of 4: the exact Paterson-Stockmeyer ``BGVPolynomialEvaluator``
    on the degree-7 polynomial of the reference's test and on a seeded
    degree-31 one, and two BFV ``mul_scale_invariant`` (relinearized, no
-   rescale; the auxiliary ring QMul of 61-bit primes is radix2-plain),
-   every slot equal to numpy's result mod T. 8b on CKKS
+   rescale; the auxiliary ring QMul of 61-bit primes is radix2-plain:
+   half of them lie just above 2^61, off the u64 four-step engine's
+   range), every slot equal to numpy's result mod T. 8b on CKKS
    ``ckks_tpu_params(14, 438)`` with a relinearization key, the
    conjugation key and a secret-key bootstrapper (decrypt, re-encode,
    re-encrypt): ``ComparisonEvaluator``
@@ -96,11 +102,11 @@ Phases (one line each; any failure exits non-zero before the result):
    sign of 10 X4 composite stages, and ``InverseEvaluator`` Goldschmidt on
    [2^-4, 1] with automatic iterations; then ``evaluate_full_domain`` on
    ±[2^-3, 2^2] on the published ``CKKS_COMPLEX_PARAMS_N14_QP438`` chain
-   (radix2-plain), whose q0 holds 1/x at level 0, with a bootstrapper
+   (mxu64-plain), whose q0 holds 1/x at level 0, with a bootstrapper
    that reports minimum input level 1. Each CKKS result is
    held at a floor set from the JAX package's result on the same
    parameters, flow and inputs less a bit. The rings' engines are checked
-   (Q, P, T four-step; QMul and the inverse's radix-2); launch counts
+   (Q, P, T four-step; QMul radix-2; the inverse's u64 four-step); launch counts
    zeroed before the circuits run once and read after, every distinct
    four-step call held against the plain version; per circuit the ms
    (mean of 3 after that run), its SK bootstraps, levels in and out and
@@ -131,8 +137,8 @@ Phases (one line each; any failure exits non-zero before the result):
    CI twin at logN 14 (16384 real slots, its own secret and ring-swap
    keys); every output at worst >= 11.8 / mean >= 14.0 bits (phase 7's
    floor less a bit), at or above the output level, with 0 kernel
-   launches; ms of pack, the bootstrap, unpack and the CI pair; peak
-   device memory;
+   launches (rings Q and P mxu64-plain, the CI ring ci-plain); ms of pack,
+   the bootstrap, unpack and the CI pair; peak device memory;
 10. keys on the wire, every earlier phase's tensors freed and the peak
    memory counter reset. 10a on BGV ``bgv_tpu_params(14, 438)``: a client
    makes its keys; the server rebuilds equal parameters from the client's
@@ -156,7 +162,27 @@ Phases (one line each; any failure exits non-zero before the result):
    (four-step everywhere); launch counts zeroed before the main path and
    read after, every distinct four-step call (the base-2 digit NTTs
    included) held against the plain version; peak device memory;
-11. the card's name and power limit as nvidia-smi gives them, the
+11. the reference's digit-matmul routes, every earlier phase's tensors
+   freed and the peak memory counter reset. 11a the u64 four-step engine
+   (``ring/ntt_u64_mxu.py``) on three chains: the bootstrap preset's 17
+   primes at logN 15 (4 x 17 x 32768), the flagship's 3 40-bit primes at
+   logN 12 (2 x 3 x 4096) and 4 61-bit primes below 2^61 at logN 16 (2 x 4
+   x 65536), on inputs at the top of its contract (uniform in [0, 2q),
+   some coefficients 2q - 1): forward and inverse, lazy (mod q, and below
+   2q) and not, equal to the radix-2 engine; ntt_single and intt_single
+   at limb 1 equal too; NTT then INTT the identity mod q; its two
+   contractions (int8 ``torch._int_mm`` per limb, batched float64 matmul)
+   equal; per chain the CUDA-event ms of both engines and both
+   contractions, the dispatched torch ops per call, the bound, the
+   tables' MiB and their cold host build time, and the working memory of
+   one call. 11b the ModUp digit-matmul contraction on
+   ``bgv_tpu_params(14, 438)``: the decode's Q -> T conversion (4 x 12 x
+   16384) and Q -> P at full level (4 x 13 x 16384), equal to the raw
+   multiply-accumulate, each timed both ways, and its calls on phase 3's
+   and phase 6's main paths. 11c the native XOF against the hashlib loop:
+   the 15-limb logN-14 CRP of phase 6's public-key seed, equal, host ms of
+   each;
+12. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
@@ -246,6 +272,13 @@ BTP9_MIN_BITS = (11.8, 14.0)
 # phase 10: the base-2 gadget's digit width (tests/test_base2_gadget.py's):
 # 2 digits a 28-bit limb
 WIRE_BASE2 = 14
+# phase 11: the ModUp digit-matmul contractions on phase 3's and phase 6's
+# main paths, counted there
+MODUP_MXU_CALLS: dict[str, int] = {}
+# phase 7 with its rings on the radix-2 engine (one H100 80GB HBM3 at
+# 700 W, before the u64 four-step engine took them): dispatched torch ops
+# per bootstrap, their share inside the NTT engine, its calls
+BTP_RADIX2_OPS = (432089, 0.767, 317)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -284,12 +317,12 @@ def cuda_ms(fn, reps: int) -> float:
 def phase_build():
     from lattigo_tpu_torch import build
     t0 = time.perf_counter()
-    logs = build.build(["ntt_mxu", "ntt_pallas"])
+    logs = build.build(["ntt_mxu", "ntt_pallas", "xof"])
     secs = time.perf_counter() - t0
     regs = sorted({ln.split("Used ")[1].split(",")[0] for log in logs.values()
                    for ln in log.splitlines() if "Used " in ln})
-    print(f"phase 1 build: ntt_mxu.cu and ntt_pallas.cu in {secs:.2f} s "
-          f"(ptxas: {'; '.join(regs)})")
+    print(f"phase 1 build: ntt_mxu.cu, ntt_pallas.cu (nvcc) and xof.cpp (g++) "
+          f"in {secs:.2f} s (ptxas: {'; '.join(regs)})")
 
 
 def four_step_bound(eng, shape) -> tuple[float, str]:
@@ -406,6 +439,24 @@ def record_calls(module, name: str, fn):
     return out, calls, launches
 
 
+def count_calls(module, name: str, fn):
+    """Run fn() with ``module.name`` counting its calls: (fn's result, the
+    count)."""
+    target = getattr(module, name)
+    n = [0]
+
+    def counting(*args, **kwargs):
+        n[0] += 1
+        return target(*args, **kwargs)
+
+    setattr(module, name, counting)
+    try:
+        out = fn()
+    finally:
+        setattr(module, name, target)
+    return out, n[0]
+
+
 def bgv_server():
     """Phase 3's server on the card: parameters, keys, the inputs a and b
     (BATCH requests), serve() (encrypt both, rescale(mul_relin), decrypt,
@@ -447,13 +498,15 @@ def bgv_server():
 def phase_server(rows):
     import numpy as np
     import torch
-    from lattigo_tpu_torch.ring import ntt_mxu
+    from lattigo_tpu_torch.ring import basis_extension, ntt_mxu
 
     t0 = time.perf_counter()
     params, a, b, serve, step_of = bgv_server()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    (ca, cb, got), calls, launches = record_calls(ntt_mxu, "four_step_cuda", serve)
+    ((ca, cb, got), calls, launches), MODUP_MXU_CALLS["phase 3"] = count_calls(
+        basis_extension, "_mod_up_contract_mxu",
+        lambda: record_calls(ntt_mxu, "four_step_cuda", serve))
     launch = ntt_mxu.four_step_cuda
     check(np.array_equal(got, a * b % params.t), "decoded slots != a*b mod t")
     mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
@@ -501,7 +554,8 @@ def phase_server(rows):
           f"{params.n} slots decode to a*b mod T in every slot; rings Q, P, T on "
           f"mxu-cuda; kernel bit-equal to plain at the main path's "
           f"{len(calls)} distinct calls {shapes}; launches on the main path "
-          f"{launches}, per step "
+          f"{launches} (ModUp digit-matmul contractions "
+          f"{MODUP_MXU_CALLS['phase 3']}), per step "
           f"{step_launches}; set-up {setup_s:.2f} s; step (mul_relin+rescale) "
           f"{step_ms:.3f} ms per batch of {BATCH}; whole request path "
           f"{serve_ms:.3f} ms")
@@ -918,7 +972,7 @@ def mp_flow(device, log_n: int, log_qp: int, timed):
 def phase_multiparty(rows):
     import numpy as np
     import torch
-    from lattigo_tpu_torch.ring import ntt_mxu
+    from lattigo_tpu_torch.ring import basis_extension, ntt_mxu
 
     torch.cuda.reset_peak_memory_stats()
     stats = {}                      # label -> [ms, forward, inverse, calls]
@@ -940,8 +994,9 @@ def phase_multiparty(rows):
         return out
 
     t0 = time.perf_counter()
-    res, calls, launches = record_calls(
-        ntt_mxu, "four_step_cuda", lambda: mp_flow("cuda", LOG_N, LOG_QP, timed))
+    (res, calls, launches), MODUP_MXU_CALLS["phase 6"] = count_calls(
+        basis_extension, "_mod_up_contract_mxu", lambda: record_calls(
+            ntt_mxu, "four_step_cuda", lambda: mp_flow("cuda", LOG_N, LOG_QP, timed)))
     run_s = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     quiet[0] = True                 # timed() adds nothing from here on
@@ -1009,8 +1064,10 @@ def phase_multiparty(rows):
           f"{res['cparams'].max_level} with {res['refresh_log_bound']}-bit masks at "
           f"{cst} (floor min {MP_REFRESH_MIN_BITS[0]} / avg {MP_REFRESH_MIN_BITS[1]}); "
           f"the run {run_s:.2f} s; kernel bit-equal to plain at the run's "
-          f"{len(calls)} distinct calls; launches on the run {launches}; CRPs "
-          f"{crp_ms:.1f} ms on the host in {stats['crp'][3]} samplings; step "
+          f"{len(calls)} distinct calls; launches on the run {launches} (ModUp "
+          f"digit-matmul contractions {MODUP_MXU_CALLS['phase 6']}); CRPs "
+          f"{crp_ms:.1f} ms on the host (native XOF) in {stats['crp'][3]} "
+          f"samplings; step "
           f"{step_ms:.3f} ms per batch of {BATCH}; request (encrypt under the "
           f"collective key, step, CKS, decode) {request_ms:.3f} ms; peak memory of "
           f"the run {peak_mb:.1f} MiB")
@@ -1270,16 +1327,20 @@ def profile_families(fn) -> str:
 
 class OpCounter:
     """Counts the aten ops torch dispatches (views included) while active,
-    and those dispatched inside the plain radix-2 NTT / INTT."""
+    those dispatched inside an NTT engine of library code (the plain
+    radix-2 NTT / INTT, the u64 four-step engine), and that engine's calls
+    by name ("radix2", "mxu64")."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
-        from lattigo_tpu_torch.ring import ntt as ntt_mod
+        from lattigo_tpu_torch.ring import ntt as ntt_mod, ntt_u64_mxu
         counter = self
-        self.total = self.in_ntt = self.ntt_calls = 0
+        self.total = self.in_ntt = 0
+        self.calls = {"radix2": 0, "mxu64": 0}
         self._depth = 0
-        self._ntt_mod = ntt_mod
-        self._orig = (ntt_mod.ntt, ntt_mod.intt)
+        self._targets = [(ntt_mod, "ntt", "radix2"), (ntt_mod, "intt", "radix2"),
+                         (ntt_u64_mxu.NTTMxu64, "_apply", "mxu64")]
+        self._orig = [getattr(obj, name) for obj, name, _ in self._targets]
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1289,9 +1350,13 @@ class OpCounter:
 
         self._mode = Mode()
 
-    def _wrap(self, fn):
+    @property
+    def ntt_calls(self) -> int:
+        return sum(self.calls.values())
+
+    def _wrap(self, fn, engine: str):
         def wrapped(*a, **kw):
-            self.ntt_calls += 1
+            self.calls[engine] += 1
             self._depth += 1
             try:
                 return fn(*a, **kw)
@@ -1300,13 +1365,15 @@ class OpCounter:
         return wrapped
 
     def __enter__(self):
-        self._ntt_mod.ntt, self._ntt_mod.intt = (self._wrap(f) for f in self._orig)
+        for (obj, name, engine), fn in zip(self._targets, self._orig):
+            setattr(obj, name, self._wrap(fn, engine))
         self._mode.__enter__()
         return self
 
     def __exit__(self, *exc):
         self._mode.__exit__(*exc)
-        self._ntt_mod.ntt, self._ntt_mod.intt = self._orig
+        for (obj, name, _), fn in zip(self._targets, self._orig):
+            setattr(obj, name, fn)
 
 
 def bootstrap_flow(device, log_n: int | None, timed):
@@ -1365,7 +1432,7 @@ def phase_bootstrap(rows, log_n: int | None = None):
     engines = {name: ring.ntt_engine for name, ring in
                (("Q", params.ring_q), ("P", params.ring_p))}
     for name, eng in engines.items():
-        check(eng == "radix2-plain", f"bootstrap ring {name} on {eng}")
+        check(eng == "mxu64-plain", f"bootstrap ring {name} on {eng}")
     keys_mb = torch.cuda.max_memory_allocated() / 2**20
     resident_mb = torch.cuda.memory_allocated() / 2**20
 
@@ -1392,7 +1459,9 @@ def phase_bootstrap(rows, log_n: int | None = None):
                                      else "ntt_pallas"][
             "inverse" if r["name"].endswith("inverse") else "forward"]
     check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"a kernel launched on the radix2-plain bootstrap: {launches}")
+          f"a kernel launched on the mxu64-plain bootstrap: {launches}")
+    check(ops.calls["radix2"] == 0 and ops.calls["mxu64"] > 0,
+          f"the bootstrap's NTT calls {ops.calls}: radix-2 ran on mxu64 rings")
     t = {k: (v[0] - t0) * 1e3 for k, v in marks.items()}
     stage_ms = {"ScaleDown+encapsulation+ModUp": t["pre"],
                 "C2S": t["c2s im"] - t["pre"],
@@ -1420,8 +1489,10 @@ def phase_bootstrap(rows, log_n: int | None = None):
           f"precision worst {worst:.2f} / mean {mean:.2f} bits (floor "
           f"{BTP_MIN_BITS[0]} / {BTP_MIN_BITS[1]}); kernel launches on the "
           f"bootstrap {launches}; {ops.total} dispatched torch ops per bootstrap, "
-          f"{ops.in_ntt} ({ops.in_ntt / ops.total:.3f}) inside {ops.ntt_calls} "
-          f"radix-2 NTT/INTT calls; peak device memory {peak_mb:.1f} MiB "
+          f"{ops.in_ntt} ({ops.in_ntt / ops.total:.3f}) inside the NTT engine's "
+          f"{ops.ntt_calls} calls {ops.calls} (on radix2-plain rings: "
+          f"{BTP_RADIX2_OPS[0]} ops, {BTP_RADIX2_OPS[1]} inside {BTP_RADIX2_OPS[2]} "
+          f"radix-2 calls); peak device memory {peak_mb:.1f} MiB "
           f"({keys_mb:.1f} over the set-up, {resident_mb:.1f} resident after it; "
           f"{held_mb:.1f} held by earlier phases at the start); the phase "
           f"{phase_s:.1f} s")
@@ -1578,7 +1649,10 @@ def phase_circuits(rows, log_n: int = LOG_N):
                "inverse Q": ip.ring_q, "inverse P": ip.ring_p}
     engines = {k: r.ntt_engine for k, r in engines.items()}
     for k, eng in engines.items():
-        want = "radix2-plain" if k in ("BFV QMul", "inverse Q", "inverse P") else "mxu-cuda"
+        # QMul's 61-bit primes lie just above 2^61, off the u64 four-step
+        # engine's range (the reference's rule too): radix-2
+        want = {"BFV QMul": "radix2-plain", "inverse Q": "mxu64-plain",
+                "inverse P": "mxu64-plain"}.get(k, "mxu-cuda")
         check(eng == want, f"phase 8 ring {k} on {eng}, not {want}")
 
     # the main path once: every circuit, the four-step calls recorded
@@ -2029,7 +2103,7 @@ def phase_sparse_bootstrap(rows, log_n: int | None = None):
     engines = {name: ring.ntt_engine for name, ring in
                (("Q", params.ring_q), ("P", params.ring_p), ("CI Q", p_ci.ring_q))}
     for name, eng in engines.items():
-        want = "ci-plain" if name.startswith("CI") else "radix2-plain"
+        want = "ci-plain" if name.startswith("CI") else "mxu64-plain"
         check(eng == want, f"phase 9b ring {name} on {eng}, not {want}")
     marks = {}
 
@@ -2050,7 +2124,7 @@ def phase_sparse_bootstrap(rows, log_n: int | None = None):
                                             else "ntt_pallas"][
             "inverse" if r["name"].endswith("inverse") else "forward"]
     check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"a kernel launched on the radix2-plain bootstraps: {launches}")
+          f"a kernel launched on the mxu64-plain bootstraps: {launches}")
     bits = {"sparse": res["sparse_bits"](outs), "ci": res["ci_bits"](ci_outs)}
     for name, per_ct in bits.items():
         for worst, mean in per_ct:
@@ -2441,6 +2515,193 @@ def phase_wire(rows, log_n: int = LOG_N):
           f"memory {peak_mb:.1f} MiB; the phase {phase_s:.1f} s")
 
 
+def dm_chains():
+    """Phase 11a's chains: (name, logN, moduli, polynomials): the bootstrap
+    preset's Q and P primes, the flagship's 3 x 40-bit Q primes
+    (``__graft_entry__.py``) and 4 61-bit primes below 2^61 at logN 16."""
+    from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
+    from lattigo_tpu_torch.rlwe.params import gen_moduli
+    from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
+
+    lit, _ = bp.build_bootstrapping_parameters(*getattr(bp, BTP_PRESET))
+    q, p = gen_moduli(lit.log_n, 2 << lit.log_n, lit.log_q, lit.log_p)
+    flag_q, _ = gen_moduli(12, 2 << 12, (40,) * 3, ())
+    gen61 = NTTFriendlyPrimesGenerator(61, 2 << 16)
+    return [("bootstrap", lit.log_n, q + p, BATCH),
+            ("flagship", 12, flag_q, 2),
+            ("61-bit", 16, [gen61.next_downstream_prime() for _ in range(4)], 2)]
+
+
+def mxu64_bound(eng, shape) -> tuple[float, str]:
+    """Least time for one u64 four-step call on x int64[shape]: each input
+    and output byte moved once (data + the used limbs' tables) against the
+    int8 multiply-adds of its two contractions, at the published peaks."""
+    polys = math.prod(shape[:-1])
+    limbs = shape[-2]
+    r, c, n = eng.rr, eng.cc, eng.n
+    ni, no = eng.nd_in, eng.nd_out
+    table_bytes = limbs * (2 * ni * no * (r * r + c * c) + 2 * 8 * n + 5 * 8)
+    nbytes = 2 * 8 * polys * n + table_bytes
+    ops = 2 * polys * ni * no * r * c * (r + c)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_digit_matmul(rows):
+    import copy
+    import torch
+    from lattigo_tpu_torch.presets import bgv_tpu_params
+    from lattigo_tpu_torch.ring import basis_extension, ntt as ntt_mod, ntt_u64_mxu
+    from lattigo_tpu_torch.ring.ring import Ring, SubRing
+    from lattigo_tpu_torch.ring.sampling import KeyedPRNG
+    from lattigo_tpu_torch.schemes import bgv
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    # 11a: the u64 four-step engine against radix-2 on three chains
+    for name, log_n, moduli, polys in dm_chains():
+        n, L = 1 << log_n, len(moduli)
+        psis = [SubRing(n, q).psi for q in moduli]
+        ntt_u64_mxu._prime_tables.cache_clear()
+        t0 = time.perf_counter()
+        ntt_u64_mxu.NTTMxu64(n, moduli, psis, "cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ring = Ring(n, moduli, device="cuda")           # its tables from the cache
+        check(ring.ntt_engine == "mxu64-plain", f"11a {name} ring on {ring.ntt_engine}")
+        eng = ring._kernel
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q = ring.q
+        # the top of the engine's input contract: uniform in [0, 2q), the
+        # first 8 coefficients of every limb 2q - 1
+        x = torch.stack([torch.randint(0, 2 * qi, (polys, n), generator=gen,
+                                       device="cuda", dtype=torch.int64)
+                         for qi in moduli], dim=-2)
+        x[..., :8] = 2 * q - 1
+
+        def radix2(v, inverse, lazy, s=slice(0, L)):
+            if inverse:
+                return ntt_mod.intt(v, ring.iroots[s], ring.ninv[s], q[s], ring.qinv[s],
+                                    log_n, lazy=lazy, small=ring.small)
+            return ntt_mod.ntt(v, ring.roots[s], q[s], ring.qinv[s], log_n,
+                               lazy=lazy, small=ring.small)
+
+        for inverse in (False, True):
+            fn = ring.intt if inverse else ring.ntt
+            got, want = fn(x), radix2(x, inverse, False)
+            check(torch.equal(got, want), f"11a {name}: mxu64 != radix-2, inverse={inverse}")
+            got_l, want_l = fn(x, lazy=True), radix2(x, inverse, True)
+            check(torch.equal(got_l % q, want_l % q) and bool((got_l < 2 * q).all()),
+                  f"11a {name}: lazy mxu64 != radix-2 mod q, inverse={inverse}")
+            for route in ("int8", "f64"):
+                check(torch.equal(eng._apply(x, slice(0, L), inverse, False, route), got),
+                      f"11a {name}: route {route} differs, inverse={inverse}")
+            one = x[..., 1:2, :].contiguous()
+            single = (ring.intt_single if inverse else ring.ntt_single)(1, one)
+            check(torch.equal(single, radix2(one, inverse, False, slice(1, 2))),
+                  f"11a {name}: single limb 1 != radix-2, inverse={inverse}")
+        check(torch.equal(ring.intt(ring.ntt(x)), x % q), f"11a {name}: INTT(NTT(x)) != x")
+
+        reps = 5 if n * L * polys > 1 << 21 else 20
+        ms = {}
+        for inverse in (False, True):
+            d = "inv" if inverse else "fwd"
+            ms[f"mxu64 {d}"] = [cuda_ms(lambda: eng._apply(x, slice(0, L), inverse, False),
+                                        reps)]
+            ms[f"radix-2 {d}"] = [cuda_ms(lambda: radix2(x, inverse, False), reps)]
+            # the two contractions in turns: int8, f64, f64, int8
+            for route in ("int8", "f64", "f64", "int8"):
+                ms.setdefault(f"{route} {d}", []).append(cuda_ms(
+                    lambda: eng._apply(x, slice(0, L), inverse, False, route), reps))
+        ops = {}
+        for label, fn in (("mxu64", lambda: ring.ntt(x)),
+                          ("radix-2", lambda: radix2(x, False, False)),
+                          ("f64 route", lambda: eng._apply(x, slice(0, L), False, False, "f64"))):
+            with OpCounter() as counter:
+                fn()
+            ops[label] = counter.total
+        work = {}
+        for label, fn in (("mxu64", lambda: ring.ntt(x)), ("radix-2", lambda: radix2(x, False, False))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            work[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        bound, by = mxu64_bound(eng, tuple(x.shape))
+        print(f"phase 11a u64 four-step engine, {name}: {tuple(x.shape)} on "
+              f"{[qi.bit_length() for qi in moduli]}-bit primes, R x C = {eng.rr} x "
+              f"{eng.cc}, digit planes {eng.nd_in} x {eng.nd_out}; equal to radix-2 "
+              f"forward and inverse (lazy mod q and below 2q), at limb 1, both "
+              f"contractions; INTT(NTT(x)) = x; CUDA-event ms (mean of {reps}; the "
+              f"contractions timed in turns, a / b): "
+              + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) for k, v in ms.items())
+              + f"; bound {bound:.4f} ms ({by}); dispatched torch ops per forward "
+              f"call {ops}; tables {eng.table_bytes() / 2**20:.1f} MiB, built cold "
+              f"on the host in {build_s:.2f} s; working memory of one forward call "
+              + ", ".join(f"{k} {v:.1f} MiB" for k, v in work.items()))
+        del ring, eng, x
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 11b: the ModUp digit-matmul contraction against the raw MAC
+    torch.cuda.reset_peak_memory_stats()
+    params = bgv.Parameters(bgv_tpu_params(LOG_N, LOG_QP), device="cuda")
+    rq, rp, rt = params.ring_q, params.ring_p, params.ring_t
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    convs = [("Q -> T decode", params.q_moduli[:12], [params.t], rt),
+             ("Q -> P full level", params.q_moduli, params.p_moduli, rp)]
+    texts = []
+    for label, src, dst, rd in convs:
+        consts = basis_extension.ModUpConstants(src, dst, "cuda")
+        check(consts.mxu, f"11b {label}: not on the digit-matmul route")
+        raw = copy.copy(consts)
+        raw.mxu = False
+        x = torch.stack([torch.randint(0, qi, (BATCH, params.n), generator=gen,
+                                       device="cuda", dtype=torch.int64)
+                         for qi in src], dim=-2)
+        dq = rd.q[:len(dst)]
+        args = (dq, rd.qinv[:len(dst)], rd.bred_hi[:len(dst)])
+        got = basis_extension.mod_up(x, consts, *args)
+        want = basis_extension.mod_up(x, raw, *args)
+        check(torch.equal(got, want), f"11b {label}: digit matmul != raw MAC")
+        t_mxu = cuda_ms(lambda: basis_extension.mod_up(x, consts, *args), 20)
+        t_raw = cuda_ms(lambda: basis_extension.mod_up(x, raw, *args), 20)
+        texts.append(f"{label} {tuple(x.shape)} -> {tuple(got.shape)}: digit matmul "
+                     f"{t_mxu:.4f} ms, raw MAC {t_raw:.4f} ms")
+    print(f"phase 11b ModUp contraction on bgv_tpu_params({LOG_N}, {LOG_QP}), equal to "
+          "the raw multiply-accumulate; CUDA-event ms of mod_up (mean of 20): "
+          + "; ".join(texts) + f"; digit-matmul contractions on the main paths "
+          f"{MODUP_MXU_CALLS}")
+
+    # 11c: the native XOF against the hashlib loop, phase 6's public-key CRP
+    def crp(plain: bool):
+        prng = KeyedPRNG(b"mp-cpk")
+        if plain:
+            prng.read_u64 = prng.read_u64_plain
+        t0 = time.perf_counter()
+        out = torch.cat([prng.uniform_poly(rq), prng.uniform_poly(rp)], dim=-2)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    crp(False)
+    native, native_ms = crp(False)
+    plain, plain_ms = crp(True)
+    check(torch.equal(native, plain), "11c native XOF != hashlib loop")
+    check(bool((native < torch.cat([rq.q, rp.q])).all()), "11c CRP residues not reduced")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    print(f"phase 11c XOF: the {tuple(native.shape)} CRP of seed b'mp-cpk' equal from "
+          f"the native XOF and the hashlib loop; host ms native {native_ms:.1f}, "
+          f"hashlib {plain_ms:.1f}; peak device memory of 11b-c {peak_mb:.1f} MiB "
+          f"({held_mb:.1f} held by earlier phases at the start); the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2466,6 +2727,7 @@ def main() -> int:
     phase_ring_packing(rows)
     phase_sparse_bootstrap(rows)
     phase_wire(rows)
+    phase_digit_matmul(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

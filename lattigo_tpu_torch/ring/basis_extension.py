@@ -13,9 +13,11 @@ use unsigned compares (:func:`modops.ult`) and the rounding bit is read
 with a logical shift. The limb contraction accumulates lazily with
 flushes every ``margin`` terms, derived from 2^63.
 
-The contraction runs as a raw multiply-accumulate when every modulus is
-< 2^30 and as a Montgomery MAC otherwise. The JAX package's int8
-digit-matmul contraction (used there only on a TPU) is not ported yet.
+The contraction runs as one exact int8 digit matmul when every modulus is
+< 2^29 and 6 ≤ Li ≤ 256 (:func:`_mod_up_contract_mxu`, the JAX package's
+rule, which it applies on a TPU only; here on every device), as a raw
+multiply-accumulate when every modulus is < 2^30, and as a Montgomery MAC
+otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from lattigo_tpu_torch.ring import modops
+from lattigo_tpu_torch.ring.ntt_u64_mxu import _balanced_digits, _digits8
 from lattigo_tpu_torch.ring.ring import u64_tensor
 
 _U64 = np.uint64
@@ -91,6 +94,31 @@ class ModUpConstants:
             # terms < 2^60: flush cadence of the raw int64 sum
             self.margin_small = max(1, ((1 << 63) - 1) // (1 << 60) - 1)
 
+        # Digit-matmul path (all moduli < 2^29, 6 ≤ Li ≤ 256): the limb
+        # contraction Σ_i y_i·(qhat_i mod p_j) as one exact int8 matmul.
+        # W[(d, i), (s, j)] = digit_s((2^{8d}·qhat_i) mod p_j); the four
+        # int32 planes recombine in int64 (|Σ_s P_s·2^{8s}| < Li·2^41) with
+        # one Barrett per output element. Li and Lj are padded to even
+        # counts with zero rows and columns, so that the matmul's K = 4·Li
+        # and N = 4·Lj are multiples of 8.
+        self.mxu = max(src_moduli + dst_moduli) < (1 << 29) and 6 <= Li <= 256
+        if self.mxu:
+            self.li_pad, self.lj_pad = Li + Li % 2, Lj + Lj % 2
+            ext = np.zeros((4, self.li_pad, self.lj_pad), dtype=_U64)
+            for i, q in enumerate(src_moduli):
+                qh = Q // q
+                for j, p in enumerate(dst_moduli):
+                    for d in range(4):
+                        ext[d, i, j] = ((1 << (8 * d)) * qh) % p
+            w = _balanced_digits(ext, 4).transpose(0, 1, 3, 2)   # [d, i, s, j]
+            self.w_mxu = torch.from_numpy(np.ascontiguousarray(w).reshape(
+                4 * self.li_pad, 4 * self.lj_pad)).to(dev)
+            # per output limb, a multiple of p_j ≥ 2^51 that makes the
+            # signed recombination non-negative before the Barrett
+            self.cshift = u64_tensor([((1 << 51) // p) * p for p in dst_moduli], dev)
+            self.plane_shifts = torch.tensor([[1], [1 << 8], [1 << 16], [1 << 24]],
+                                             dtype=torch.int64, device=dev)
+
 
 def overflow_count(y, whi, wlo, centered: bool):
     """v = floor/round(Σ_i y_i/q_i) via exact 128-bit fixed point.
@@ -116,12 +144,34 @@ def overflow_count(y, whi, wlo, centered: bool):
     return v
 
 
+def _mod_up_contract_mxu(y, v, consts: ModUpConstants, dst_q, dst_bhi):
+    """The limb contraction as one exact int8 digit matmul.
+
+    y: int64[..., Li, N] canonical; v: int64[..., N] overflow count.
+    Returns int64[..., Lj, N] in [0, p_j).
+    """
+    Li, Lj = len(consts.src_moduli), len(consts.dst_moduli)
+    lead, n = y.shape[:-2], y.shape[-1]
+    y3 = y.reshape(-1, Li, n)
+    if consts.li_pad != Li:
+        y3 = torch.cat([y3, y3.new_zeros(y3.shape[0], consts.li_pad - Li, n)], dim=1)
+    dig = _digits8(y3, (0, 2, 3, 1), 4).view(-1, 4 * consts.li_pad)  # [(b, N), (d, i)]
+    p32 = torch._int_mm(dig, consts.w_mxu)                           # [(b, N), (s, j)]
+    t = (p32.view(-1, n, 4, consts.lj_pad).to(torch.int64)
+         * consts.plane_shifts).sum(dim=-2)[..., :Lj]                # |t| < 2^51
+    tu = torch.movedim(t + consts.cshift, -1, -2)                    # [b, Lj, N]
+    acc = tu + v.reshape(-1, 1, n) * consts.qneg_plain[:, None]
+    return modops.bred_add(acc, dst_q, dst_bhi).reshape(lead + (Lj, n))
+
+
 def mod_up(x, consts: ModUpConstants, dst_q, dst_qinv, dst_bhi,
            centered: bool = True):
     """Basis-convert x (int64[..., Li, N], coeff domain) to [..., Lj, N]."""
     y = modops.mred(x, consts.qhatinv, consts.src_q, consts.src_qinv,
                     consts.src_small)
     v = overflow_count(y, consts.whi, consts.wlo, centered)
+    if consts.mxu:
+        return _mod_up_contract_mxu(y, v, consts, dst_q, dst_bhi)
     if consts.small:
         # raw MAC (terms < 2^60) + one Barrett per output element
         t = y[..., :, None, :] * consts.qhat_plain[:, :, None]
@@ -273,11 +323,12 @@ class Decomposer:
     def decompose_all(self, x_coeff, level_q: int):
         """All digits at once: (yq [..., beta, l+1, N], yp [..., beta, LP, N]).
 
-        Small chains run the per-digit raw-MAC path; others one broadcast
-        Montgomery program over a digit axis.
+        Small chains run the per-digit raw-MAC or digit-matmul path; others
+        one broadcast Montgomery program over a digit axis.
         """
         lq = level_q + 1
-        if self._get_consts(level_q, 0).small:
+        c0 = self._get_consts(level_q, 0)
+        if c0.small or c0.mxu:
             ys = [self.decompose_single(x_coeff, level_q, d)
                   for d in range(self.num_digits(level_q))]
             return (torch.stack([y[0] for y in ys], dim=-3),

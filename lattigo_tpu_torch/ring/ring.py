@@ -14,6 +14,10 @@ JAX package's ``Ring._build_pallas``):
 * ``u32``: a STANDARD ring with 512 ≤ N ≤ 2^15 and every q < 2^30 that
   the four-step engine did not take uses the fused u32 engine
   (:mod:`.ntt_pallas`);
+* ``mxu64``: a STANDARD ring with N ≥ 4096 and every q < 2^61 that no
+  kernel took uses the u64 four-step digit-matmul engine
+  (:mod:`.ntt_u64_mxu`): library matmuls and torch elementwise ops, no
+  kernel of this repository, on every device;
 * ``radix2``: every other chain uses the plain radix-2 engine (:mod:`.ntt`).
 
 A CONJUGATE_INVARIANT ring (``ring_type``) always takes the plain CI
@@ -23,8 +27,9 @@ package; ``ring.ntt_engine`` names it "ci-plain".
 Each kernel engine runs its CUDA kernel on the card and its plain version
 on the CPU; ``ring.ntt_engine`` names the choice. A kernel that fails to
 build or launch raises. The JAX package on a TPU sends a 28-bit chain at
-logN = 15 to its four-step kernel; the port's four-step kernel stops at
-logN = 14, so that chain takes the u32 engine here (non-lazy outputs are
+logN = 15 and 16 to its four-step kernel; the port's four-step kernel
+stops at logN = 14, so that chain takes the u32 engine at logN = 15 and
+the u64 four-step engine at logN = 16 here (non-lazy outputs are
 canonical either way).
 """
 
@@ -37,7 +42,8 @@ import numpy as np
 import torch
 
 from lattigo_tpu_torch.device import resolve_device
-from lattigo_tpu_torch.ring import modops, ntt as ntt_mod, ntt_ci, ntt_mxu, ntt_pallas
+from lattigo_tpu_torch.ring import (modops, ntt as ntt_mod, ntt_ci, ntt_mxu, ntt_pallas,
+                                    ntt_u64_mxu)
 from lattigo_tpu_torch.ring.modops import gen_bred_constant, gen_mred_constant
 from lattigo_tpu_torch.utils.primes import primitive_nth_root
 
@@ -92,7 +98,7 @@ class SubRing:
 
 
 def select_engine(n: int, moduli: list[int], ring_type: str = STANDARD) -> str:
-    """The NTT engine a ring takes: "mxu", "u32" or "radix2"."""
+    """The NTT engine a ring takes: "mxu", "u32", "mxu64" or "radix2"."""
     if ring_type != STANDARD:
         return "radix2"
     if (ntt_mxu.MIN_N <= n <= ntt_mxu.MAX_N
@@ -101,6 +107,9 @@ def select_engine(n: int, moduli: list[int], ring_type: str = STANDARD) -> str:
     if (ntt_pallas.MIN_N <= n <= ntt_pallas.MAX_N
             and all(q < (1 << ntt_pallas.MAX_Q_BITS) for q in moduli)):
         return "u32"
+    if (n >= ntt_u64_mxu.MIN_N
+            and all(q < (1 << ntt_u64_mxu.MAX_Q_BITS) for q in moduli)):
+        return "mxu64"
     return "radix2"
 
 
@@ -171,8 +180,11 @@ class Ring:
                      if self._engine == "mxu" else None)
         self._u32 = (ntt_pallas.NTTPallas(n, self.moduli, psis, dev)
                      if self._engine == "u32" else None)
-        #: the kernel engine of this ring (four-step or u32), or None
-        self._kernel = self._mxu or self._u32
+        self._mxu64 = (ntt_u64_mxu.NTTMxu64(n, self.moduli, psis, dev)
+                       if self._engine == "mxu64" else None)
+        #: the engine of this ring with ntt / intt / *_single entry points
+        #: (four-step, u32 or u64 four-step), or None for radix-2
+        self._kernel = self._mxu or self._u32 or self._mxu64
 
     # -- basic properties ---------------------------------------------------
 
@@ -180,12 +192,15 @@ class Ring:
     def ntt_engine(self) -> str:
         """The NTT engine: "mxu-cuda" / "u32-cuda" (the four-step or u32
         CUDA kernel), "mxu-plain" / "u32-plain" (its plain torch version, on
-        the CPU), "radix2-plain" (the stage-by-stage engine) or "ci-plain"
-        (the conjugate-invariant ring's transform)."""
+        the CPU), "mxu64-plain" (the u64 four-step engine, library matmuls
+        on every device), "radix2-plain" (the stage-by-stage engine) or
+        "ci-plain" (the conjugate-invariant ring's transform)."""
         if self.ci:
             return "ci-plain"
         if self._kernel is None:
             return "radix2-plain"
+        if self._mxu64 is not None:
+            return "mxu64-plain"
         return self._engine + ("-cuda" if self.device.type == "cuda" else "-plain")
 
     @property

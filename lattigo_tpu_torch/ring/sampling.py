@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from lattigo_tpu_torch import native
 from lattigo_tpu_torch.ring import modops
 
 
@@ -117,7 +118,11 @@ class KeyedPRNG:
     last one is dropped) and the counter carries across reads.
 
     Bit for bit the stream of :class:`lattigo_tpu.ring.sampling.KeyedPRNG`,
-    so every party that shares the seed derives the same polynomials.
+    so every party that shares the seed derives the same polynomials. The
+    words come from the native XOF (:mod:`lattigo_tpu_torch.native`, built
+    at first use; it raises if it cannot be built); ``read_u64_plain`` is
+    the same stream from Python's hashlib, the plain version the tests hold
+    it against.
     """
 
     def __init__(self, key: bytes = b""):
@@ -127,6 +132,11 @@ class KeyedPRNG:
 
     def read_u64(self, count: int) -> np.ndarray:
         """The next ``count`` words, uint64[count]."""
+        out, self.counter = native.xof_fill_u64(self.key[:64], self.counter, count)
+        return out
+
+    def read_u64_plain(self, count: int) -> np.ndarray:
+        """:meth:`read_u64` from Python's hashlib."""
         blocks = -(-count // 8)
         out = []
         for c in range(self.counter, self.counter + blocks):

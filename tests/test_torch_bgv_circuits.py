@@ -124,6 +124,9 @@ def poly():
 def test_ring_qmul_primes_equal(bfv):
     pj, pt = bfv["pj"], bfv["pt"]
     assert pt.ring_qmul.moduli == pj.ring_qmul.moduli
+    # half of QMul's 61-bit primes lie just above 2^61, off the u64
+    # four-step engine's q < 2^61 (the reference's rule too): radix-2
+    assert max(pt.ring_qmul.moduli) >= 1 << 61
     assert pt.ring_qmul.ntt_engine == "radix2-plain"
     # the card's configuration: 13 primes of 61 bits, off Q's and T
     lit = tpresets.bgv_tpu_params(14, 438)

@@ -2,9 +2,12 @@
 
 Its ``entry()`` set-up: logN 12, Q = 3 x 40-bit and P = 45-bit primes, T
 the first 16-bit prime of ``NTTFriendlyPrimesGenerator(16, 2N)``, a batch
-of 4, ``rescale(mul_relin(a, b))``. Every prime is ≥ 2^30, so the port's
-rings run the plain radix-2 engine. The JAX package makes the keys and
-ciphertexts and runs the step under one ``jax.jit`` each; the port, on the
+of 4, ``rescale(mul_relin(a, b))``. Every prime is ≥ 2^30 and < 2^61 at
+N = 4096, so the port's rings run the u64 four-step engine
+(``mxu64-plain``), the JAX package's rule on a TPU; the JAX package on the
+CPU runs radix-2, and non-lazy NTT outputs are canonical in both. The JAX
+package makes the keys and ciphertexts and runs the step under one
+``jax.jit`` each; the port, on the
 carried relinearization key and ciphertexts, must give the same residues
 (tolerance 0), level and T-scale, and decrypt to numpy's a·b mod T.
 """
@@ -78,7 +81,7 @@ def test_flagship_parameters_equal(ref):
     pj, pt = ref["pj"], ref["pt"]
     assert (pt.q_moduli, pt.p_moduli, pt.t) == (pj.q_moduli, pj.p_moduli, pj.t)
     assert all(1 << 39 < q < 1 << 41 for q in pt.q_moduli) and pt.t < 1 << 17
-    assert pt.ring_q.ntt_engine == pt.ring_p.ntt_engine == "radix2-plain"
+    assert pt.ring_q.ntt_engine == pt.ring_p.ntt_engine == "mxu64-plain"
 
 
 def test_flagship_step_bit_equal(ref):

@@ -10,7 +10,8 @@
   tables, which they collapse to;
 * the engine each (N, prime size) takes, by the rule of
   lattigo_tpu/ring/ring.py:_build_pallas (which returns None off a TPU, so
-  the rule is written out here).
+  the rule is written out here), its third branch (the u64 four-step
+  engine for q < 2^61, N ≥ 4096) included.
 """
 
 import numpy as np
@@ -129,20 +130,25 @@ def test_u32_tables(pair):
 
 
 def _jax_rule(n, moduli):
-    """lattigo_tpu/ring/ring.py:325-355 on a TPU, STANDARD ring, no
-    environment switches, logN ≤ 15."""
+    """lattigo_tpu/ring/ring.py:325-363 on a TPU, STANDARD ring, no
+    environment switches, logN ≤ 14 (the port's four-step kernel stops
+    there)."""
     if n < 512:
         return "radix2"
     if n >= 4096 and all(q < (1 << 29) for q in moduli):
         return "mxu"
     if all(q < (1 << 30) for q in moduli) and n <= (1 << 15):
         return "u32"
+    if n >= 4096 and all(q < (1 << 61) for q in moduli):
+        return "mxu64"
     return "radix2"
 
 
 @pytest.mark.parametrize("n, bits, k, engine", [
     (512, 28, 1, "u32"), (1024, 29, 1, "u32"), (4096, 28, 2, "mxu"),
     (4096, 29, 4, "u32"), (256, 28, 1, "radix2"), (1024, 31, 1, "radix2"),
+    (4096, 40, 3, "mxu64"), (2048, 40, 3, "radix2"), (8192, 60, 2, "mxu64"),
+    (4096, 31, 2, "mxu64"),
 ])
 def test_engine_choice(n, bits, k, engine):
     moduli = _moduli(bits, n, k)
