@@ -182,8 +182,30 @@ Phases (one line each; any failure exits non-zero before the result):
    and phase 6's main paths. 11c the native XOF against the hashlib loop:
    the 15-limb logN-14 CRP of phase 6's public-key seed, equal, host ms of
    each;
-12. the card's name and power limit as nvidia-smi gives them, the
-   kernels' JSON line, and the result line.
+12. scale-out, every rank a process (``lattigo_tpu_torch.parallel.launch``)
+   and 4 ranks sharing the one card over gloo, every exchange copied
+   through the host: 12a the coefficient-sharded NTT at logN 16 on 11a's
+   4 primes below 2^61, 2 polynomials, D = 4: forward, inverse (lazy and
+   not) and ``negacyclic_mul_sharded``, bit-equal on every rank to the
+   one-process ring (lazy mod q), ms of both (CUDA events, max over ranks),
+   bytes swapped and staged; 12b phase 3's step on a dp 2 x limb 2 mesh,
+   inputs a batch of 4 at 12 Q limbs and the keys made once here and sent
+   to every rank (digests compared): the gathered output bit-equal to
+   phase 3's evaluator in this process and a*b mod T in every slot; each
+   rank's four-step launches (a ring over its own moduli), every distinct
+   call held against the plain version; step ms (max over ranks, after a
+   warm-up) beside the one-process step, bytes a rank receives and stages,
+   peak memory a rank; 12c hoisted rotations [1, 3] at
+   ``ckks_tpu_params(14, 438)`` over limb 2, the same checks; 12d
+   ``dryrun_multichip(4, device="cuda", backend="gloo")``, the JAX dry
+   run's four parts at its shapes;
+13. the 16 examples (``lattigo_tpu_torch/examples``), each ``main()`` on the
+   card with the JAX test's arguments: ms, the rings' NTT engines, the
+   kernels' launches, every distinct kernel call held against the plain
+   version; any failed assert fails the run;
+14. the card's name and power limit as nvidia-smi gives them, the
+   kernels' JSON line (the launches of phases 12 and 13 in
+   ``scale_out_launches`` and ``examples_launches``), and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
 nothing of JAX.
@@ -2702,6 +2724,263 @@ def phase_digit_matmul(rows):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 12: scale-out; phase 13: the examples -----------------------------------
+
+# phase 12: ranks share the one card over gloo; 12a's chain is phase 11a's
+# 61-bit one (4 primes below 2^61 at logN 16, 2 polynomials); 12b / 12c
+# run one level below the top (12 Q limbs, which limb 2 divides)
+SCALE_OUT_WORLD, SCALE_OUT_BACKEND = 4, "gloo"
+SP_LOG_N, SP_POLYS = 16, 2
+SCALE_OUT_REPS = 10
+HOISTED_ROTS = [1, 3]
+# phase 13: the JAX package's test arguments (tests/test_examples.py)
+EXAMPLES = {
+    "ckks_tutorial": {}, "ckks_sigmoid": {}, "ckks_sigmoid_minimax": {},
+    "bgv_vectorized_ole": {}, "bgv_ride_hailing": dict(n_drivers=8),
+    "ckks_scheme_switching": {}, "rgsw_blind_rotations": {}, "multiparty_psi": {},
+    "thresh_eval_key_gen": dict(n_parties=3, t=2), "int_pir": dict(n_parties=2),
+    "ckks_bootstrapping": {}, "ckks_vectorized_polynomial_evaluation": {},
+    "template_ckks": {}, "template_bgv": {}, "ckks_bootstrapping_slim": {},
+    "ckks_bootstrapping_high_precision": {},
+}
+
+
+def scale_out_inputs():
+    """12b's and 12c's set-ups in this process: phase 3's BGV server
+    (bgv_tpu_params(14, 438), keys from SEED) with a batch of 4 a and b one
+    level below the top, and a CKKS ckks_tpu_params(14, 438) ciphertext of
+    4 vectors at that level with the Galois keys of HOISTED_ROTS; each with
+    its one-process step."""
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import rlwe
+    from lattigo_tpu_torch.presets import bgv_tpu_params, ckks_tpu_params
+    from lattigo_tpu_torch.schemes import bgv, ckks
+
+    params = bgv.Parameters(bgv_tpu_params(LOG_N, LOG_QP), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kg = rlwe.KeyGenerator(params)
+    sk = kg.gen_secret_key(gen)
+    ev = bgv.Evaluator(params, rlwe.EvaluationKeySet(kg.gen_relinearization_key(gen, sk)))
+    encoder, encryptor = bgv.Encoder(params), rlwe.Encryptor(params, sk)
+    rng = np.random.default_rng(SEED)
+    a = rng.integers(0, params.t, (BATCH, params.n))
+    b = rng.integers(0, params.t, (BATCH, params.n))
+    level = params.max_level - 1
+    ca = encryptor.encrypt(gen, encoder.encode(a), batch=(BATCH,)).at_level(level)
+    cb = encryptor.encrypt(gen, encoder.encode(b), batch=(BATCH,)).at_level(level)
+    bgv_in = dict(params=params, ev=ev, a=a, b=b, ca=ca, cb=cb, encoder=encoder,
+                  decryptor=rlwe.Decryptor(params, sk))
+
+    cp = ckks.Parameters(ckks_tpu_params(LOG_N, LOG_QP), device="cuda")
+    kc = rlwe.KeyGenerator(cp)
+    skc = kc.gen_secret_key(gen)
+    els = [cp.galois_element(r) for r in HOISTED_ROTS]
+    cev = ckks.Evaluator(cp, rlwe.EvaluationKeySet(galois_keys=kc.gen_galois_keys(
+        gen, els, skc, levels={g: level for g in els})))
+    v = rng.uniform(-1, 1, (BATCH, cp.max_slots)) + 1j * rng.uniform(-1, 1, (BATCH, cp.max_slots))
+    cct = rlwe.Encryptor(cp, skc).encrypt(gen, ckks.Encoder(cp).encode(v, level=level),
+                                          batch=(BATCH,))
+    return bgv_in, dict(params=cp, ev=cev, ct=cct, level=level)
+
+
+def phase_scale_out(rows):
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch import interop
+    from lattigo_tpu_torch.parallel import dryrun, launch
+    from lattigo_tpu_torch.rlwe.elements import Ciphertext
+    from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    world, backend = SCALE_OUT_WORLD, SCALE_OUT_BACKEND
+    # 12a inputs: phase 11a's 61-bit chain at logN 16
+    n = 1 << SP_LOG_N
+    gen61 = NTTFriendlyPrimesGenerator(61, 2 * n)
+    moduli = [gen61.next_downstream_prime() for _ in range(4)]
+    rng = np.random.default_rng(SEED)
+    qcol = np.array(moduli, dtype=np.uint64)[None, :, None]
+    sa, sb = (rng.integers(0, 1 << 62, (SP_POLYS, 4, n)).astype(np.uint64) % qcol
+              for _ in range(2))
+    # 12b and 12c: the one-process steps, on this process's card
+    bgv_in, ck = scale_out_inputs()
+    ev, ca, cb = bgv_in["ev"], bgv_in["ca"], bgv_in["cb"]
+    ref = ev.rescale(ev.mul_relin(ca, cb))
+    one_ms = cuda_ms(lambda: ev.rescale(ev.mul_relin(ca, cb)), SCALE_OUT_REPS)
+    got = bgv_in["encoder"].decode(bgv_in["decryptor"].decrypt(ref))
+    check(np.array_equal(got, bgv_in["a"] * bgv_in["b"] % bgv_in["params"].t),
+          "phase 12b: the one-process step does not decode to a*b mod T")
+    cev, cct = ck["ev"], ck["ct"]
+    href = cev.rotate_columns_hoisted(cct, HOISTED_ROTS)
+    h_one_ms = cuda_ms(lambda: cev.rotate_columns_hoisted(cct, HOISTED_ROTS),
+                       SCALE_OUT_REPS)
+    rlk = ev.evk.relinearization_key.gadget.value
+    programs = [
+        ("sp", dict(n=n, moduli=moduli, a=sa, b=sb, reps=SCALE_OUT_REPS)),
+        ("bgv_step", dict(dp=2, limb=2, literal_json=bgv_in["params"].literal.to_json(),
+                          rlk_rows=(interop.to_numpy(rlk.q), interop.to_numpy(rlk.p)),
+                          a=interop.to_numpy(ca.value), b=interop.to_numpy(cb.value),
+                          scale=ca.scale, reps=SCALE_OUT_REPS, record=True)),
+        ("hoisted", dict(limb=2, literal_json=ck["params"].literal.to_json(),
+                         galois_rows={g: (interop.to_numpy(k.gadget.value.q),
+                                          interop.to_numpy(k.gadget.value.p))
+                                      for g, k in cev.evk.galois_keys.items()},
+                         ct=interop.to_numpy(cct.value), rots=HOISTED_ROTS,
+                         reps=SCALE_OUT_REPS, record=True)),
+    ]
+    t0 = time.perf_counter()
+    ranks = launch.run(dryrun.programs_rank, world, "cuda", programs, backend=backend)
+    world_s = time.perf_counter() - t0
+    sp, step, hz = ([r[i] for r in ranks] for i in range(3))
+
+    # 12a: the sp-sharded NTT at full width
+    for r in sp:
+        check(all(r["checks"].values()), f"phase 12a: sharded != one process {r['checks']}")
+    sp_ms = {k: max(r["ms"][k] for r in sp) for k in sp[0]["ms"]}
+    print(f"phase 12 scale-out: {world} ranks, processes that share cuda:0 over "
+          f"{backend} (world {world_s:.1f} s, spawn and set-up included)")
+    print(f"phase 12a sp-sharded NTT: logN={SP_LOG_N}, {len(moduli)} primes below "
+          f"2^61, {SP_POLYS} polynomials, D={world} (a rank {sp[0]['local_shape']}): "
+          f"forward, inverse (lazy and not) and negacyclic_mul_sharded bit-equal "
+          f"to the one-process {sp[0]['engine']} ring (lazy mod q) on every rank; "
+          f"ms (CUDA events, max over ranks) sharded NTT {sp_ms['ntt']:.3f}, "
+          f"INTT {sp_ms['intt']:.3f}, one-process NTT {sp_ms['ntt_one']:.3f}, "
+          f"INTT {sp_ms['intt_one']:.3f} (4 ranks on one card); bytes a rank over "
+          f"the five transforms and the gathers: swapped {sp[0]['stats']['swapped']}, "
+          f"gathered {sp[0]['stats']['gathered']}, staged through the host "
+          f"{sp[0]['stats']['staged']}")
+
+    # 12b: the dp x limb BGV step
+    check(np.array_equal(step[0]["output"], interop.to_numpy(ref.value)),
+          "phase 12b: the gathered step != phase 3's evaluator in one process")
+    out = Ciphertext(value=interop.to_torch(step[0]["output"], "cuda"), is_ntt=True,
+                     scale=step[0]["scale"])
+    dec = bgv_in["encoder"].decode(bgv_in["decryptor"].decrypt(out))
+    check(np.array_equal(dec, bgv_in["a"] * bgv_in["b"] % bgv_in["params"].t),
+          "phase 12b: the gathered step does not decode to a*b mod T")
+    digest = dryrun.keys_digest(ev.evk)
+    check(all(r["keys_digest"] == digest for r in step),
+          "phase 12b: a rank's keys differ from this process's")
+    check(all(r["keys_digest"] == dryrun.keys_digest(cev.evk) for r in hz),
+          "phase 12c: a rank's keys differ from this process's")
+    for name, part in (("12b", step), ("12c", hz)):
+        for i, r in enumerate(part):
+            check(r["launches"]["forward"] > 0 and r["launches"]["inverse"] > 0,
+                  f"phase {name}: rank {i} launched no four-step kernel: {r['launches']}")
+            check(r["held"]["calls"] > 0 and r["held"]["max_abs_err"] == 0,
+                  f"phase {name}: rank {i} kernel calls not held: {r['held']}")
+            check(r["engines"] == ["mxu-cuda"], f"phase {name}: shard rings {r['engines']}")
+    for r in rows:
+        if r["name"].startswith("ntt_mxu"):
+            d = "inverse" if r["name"].endswith("inverse") else "forward"
+            r["scale_out_launches"] = sum(x["launches"][d] for x in step + hz)
+        else:
+            r["scale_out_launches"] = 0
+    print(f"phase 12b dp x limb BGV step: bgv_tpu_params({LOG_N}, {LOG_QP}), "
+          f"mesh dp 2 x limb 2, batch {BATCH} at {ca.level + 1} Q limbs (a rank "
+          f"{step[0]['local_in']} in, {[r['local_out'] for r in step]} out), "
+          f"gathered {step[0]['out_shape']} bit-equal to phase 3's evaluator in one "
+          f"process and a*b mod T in every slot; keys equal on every rank; shard "
+          f"rings {step[0]['engines']}; four-step launches per rank "
+          f"{[r['launches'] for r in step]}, every distinct call held against the "
+          f"plain version ({[r['held']['calls'] for r in step]} calls: "
+          f"{step[0]['held']['shapes']}); step ms (CUDA events, max over ranks, "
+          f"after a warm-up) {max(r['ms'] for r in step):.3f}, with the output "
+          f"gather {max(r['ms_gathered'] for r in step):.3f}, one process "
+          f"{one_ms:.3f}; bytes a rank receives per step (gathered + broadcast) "
+          f"{[r['step_bytes']['gathered'] + r['step_bytes']['broadcast'] for r in step]}"
+          f", staged through the host {[r['step_bytes']['staged'] for r in step]}, "
+          f"output gather {[r['output_bytes'] for r in step]}; peak MiB per rank "
+          f"{[round(r['peak_mib'], 1) for r in step]}")
+
+    # 12c: limb-sharded hoisted rotations
+    for k in HOISTED_ROTS:
+        check(np.array_equal(hz[0]["outputs"][k], interop.to_numpy(href[k].value)),
+              f"phase 12c: rotation {k} != one process")
+    print(f"phase 12c limb-sharded hoisted rotations {HOISTED_ROTS}: "
+          f"ckks_tpu_params({LOG_N}, {LOG_QP}), limb 2 (dp ranks replicate), "
+          f"{BATCH} ciphertexts at {ck['level'] + 1} Q limbs (a rank "
+          f"{hz[0]['local_in']}), bit-equal to one process; four-step launches per "
+          f"rank {[r['launches'] for r in hz]}, {[r['held']['calls'] for r in hz]} "
+          f"distinct calls held; ms (max over ranks) {max(r['ms'] for r in hz):.3f}, "
+          f"one process {h_one_ms:.3f}; bytes a rank receives "
+          f"{[r['step_bytes']['gathered'] for r in hz]}, staged "
+          f"{[r['step_bytes']['staged'] for r in hz]}; peak MiB per rank "
+          f"{[round(r['peak_mib'], 1) for r in hz]}")
+    del bgv_in, ck, ref, href, ev, cev, ca, cb, cct, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12d: the dry run at the JAX dry run's shapes
+    t0 = time.perf_counter()
+    r0 = dryrun.dryrun_multichip(world, device="cuda", backend=backend)
+    print(f"phase 12d dryrun_multichip({world}, device='cuda', backend='{backend}'): "
+          f"passed in {time.perf_counter() - t0:.1f} s; bootstrap bits "
+          f"{[round(x, 2) for x in r0['bootstrap_bits']]}, packed pair "
+          f"{[round(x, 2) for x in r0['packed_bits']]}; mesh checks "
+          f"{r0['mesh_checks']}; the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_examples(rows):
+    import importlib
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    from lattigo_tpu_torch.ring import ring as ring_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    init = ring_mod.Ring.__init__
+    engines: set = set()
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        engines.add(self.ntt_engine)
+
+    totals = {"ntt_mxu": {"forward": 0, "inverse": 0},
+              "ntt_pallas": {"forward": 0, "inverse": 0}}
+    held, err, lines = 0, 0, []
+    ring_mod.Ring.__init__ = recording_init
+    try:
+        for name, kwargs in EXAMPLES.items():
+            engines.clear()
+            mod = importlib.import_module(f"lattigo_tpu_torch.examples.{name}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (_, calls, u32), mxu_calls, mxu = record_calls(
+                ntt_mxu, "four_step_cuda", lambda: record_calls(
+                    ntt_pallas, "u32_cuda", lambda: mod.main(device="cuda", **kwargs)))
+            ms = (time.perf_counter() - t0) * 1e3
+            for k in ("forward", "inverse"):
+                totals["ntt_pallas"][k] += u32[k]
+                totals["ntt_mxu"][k] += mxu[k]
+            for module, fam, recorded in ((ntt_pallas, "u32", calls),
+                                          (ntt_mxu, "four_step", mxu_calls)):
+                for eng, x, lo, inverse, lazy in recorded.values():
+                    got = getattr(module, f"{fam}_cuda")(eng, x, lo, inverse, lazy)
+                    want = getattr(module, f"{fam}_plain")(eng, x, lo, inverse, lazy)
+                    err = max(err, int((got - want).abs().max()))
+                    check(torch.equal(got, want), f"phase 13 {name}: {fam} kernel != "
+                          f"plain at {tuple(x.shape)} inverse={inverse}")
+                held += len(recorded)
+            lines.append(f"{name} {ms:.1f} ms {sorted(engines)} four-step {mxu} "
+                         f"u32 {u32}")
+    finally:
+        ring_mod.Ring.__init__ = init
+    for r in rows:
+        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
+        r["examples_launches"] = totals[fam]["inverse" if r["name"].endswith("inverse")
+                                             else "forward"]
+    check(totals["ntt_pallas"]["forward"] > 0 and totals["ntt_pallas"]["inverse"] > 0,
+          "phase 13: the blind-rotation example launched no u32 kernel")
+    print(f"phase 13 examples: all {len(EXAMPLES)} main()s passed their asserts on "
+          f"the card (the JAX test's arguments); {held} distinct kernel calls held "
+          f"against the plain version (max |err| {err}); " + "; ".join(lines)
+          + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2728,6 +3007,8 @@ def main() -> int:
     phase_sparse_bootstrap(rows)
     phase_wire(rows)
     phase_digit_matmul(rows)
+    phase_scale_out(rows)
+    phase_examples(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -411,24 +411,28 @@ class BootstrappingEvaluator:
         ~log_prec bits per extra iteration (ia.cr/2022/024; ref
         bootstrapping/evaluator.go:315-460 IterationsParameters).
 
-        Round i re-bootstraps diff = (ct − out)·2^log_prec — the VALUE is
-        multiplied up (exact, level-free) so the residual error becomes a
-        full-size message at the same scale and the bootstrap's fixed
-        absolute precision applies to it undiminished; the correction's
-        scale is then relabeled ×2^log_prec so it folds back at error
-        units.
+        Round i (i = 1, 2, ...) re-bootstraps diff = (ct − out)·2^(i·log_prec)
+        — the VALUE is multiplied up (exact, level-free) so the residual
+        error, ~log_prec bits smaller after each round, becomes a message
+        of the same size every round and the bootstrap's fixed absolute
+        precision applies to it undiminished; the correction's scale is
+        then relabeled ×2^(i·log_prec) so it folds back at error units.
+        Round 1 is the JAX package's; from round 2 on the JAX package
+        keeps the factor 2^log_prec, which leaves the residual below the
+        bootstrap's own error, so a third iteration gains nothing there
+        (ROADMAP, reference caveat 12).
         """
         ev = self.ev
         out = self.bootstrap(ct, keys)
-        for _ in range(iterations - 1):
+        for i in range(1, iterations):
             down = out.at_level(0)
             diff = ev.sub(ct, down)                      # −err at ct.scale
-            # amplify the error into the message range: value ×2^log_prec
-            diff = ev.mul_scalar_int(diff, 1 << log_prec)
+            # amplify the error into the message range
+            diff = ev.mul_scalar_int(diff, 1 << (i * log_prec))
             corr = self.bootstrap(diff, keys)
             # relabel so corr reads in error units, then fold into out
             corr = corr.replace(
-                scale=Fraction(corr.scale) * (1 << log_prec))
+                scale=Fraction(corr.scale) * (1 << (i * log_prec)))
             out = ev.add(out.at_level(min(out.level, corr.level)),
                          corr.at_level(min(out.level, corr.level)))
         return out

@@ -169,6 +169,14 @@ def mod_up(x, consts: ModUpConstants, dst_q, dst_qinv, dst_bhi,
     """Basis-convert x (int64[..., Li, N], coeff domain) to [..., Lj, N]."""
     y = modops.mred(x, consts.qhatinv, consts.src_q, consts.src_qinv,
                     consts.src_small)
+    return mod_up_contract(y, consts, dst_q, dst_qinv, dst_bhi, centered)
+
+
+def mod_up_contract(y, consts: ModUpConstants, dst_q, dst_qinv, dst_bhi,
+                    centered: bool = True):
+    """The limb contraction of :func:`mod_up`, from y_i = x_i·(Q/q_i)^{-1}
+    (int64[..., Li, N], canonical): a rank that holds some source limbs
+    computes their y_i and gathers the rest (``parallel.spmd``)."""
     v = overflow_count(y, consts.whi, consts.wlo, centered)
     if consts.mxu:
         return _mod_up_contract_mxu(y, v, consts, dst_q, dst_bhi)

@@ -45,6 +45,12 @@ def test_port_imports_no_jax():
     for m in ("", ".protocols", ".threshold", ".additive_shares", ".sharing",
               ".sharing_bgv"):
         assert "lattigo_tpu_torch.multiparty" + m in mods
+    for m in ("", ".mesh", ".ntt_sp", ".spmd", ".launch", ".dryrun"):
+        assert "lattigo_tpu_torch.parallel" + m in mods
+    examples = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))
+    assert len(examples) == 16
+    for m in examples:
+        assert "lattigo_tpu_torch.examples." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'bench_ntt_u32', 'bench_ntt_mxu']:\n"
@@ -84,3 +90,29 @@ def test_ckks_default_device_is_cuda_or_raises():
         with pytest.raises(RuntimeError, match="CUDA"):
             ckks.Parameters(ckks_tpu_params(12, 218))
     assert ckks.Parameters(lit, device="cpu").ring_q.q.device.type == "cpu"
+
+
+def test_spawned_rank_imports_no_jax():
+    """A rank spawned by parallel.launch re-imports only the package."""
+    from lattigo_tpu_torch.parallel import launch
+    infos = launch.run(launch.world_info, 2, "cpu")
+    assert [i["rank"] for i in infos] == [0, 1]
+    for info in infos:
+        assert info["world"] == 2 and info["backend"] == "gloo"
+        bad = [m for m in info["modules"] if m == "jax" or m.startswith("jax.")
+               or m == "lattigo_tpu" or m.startswith("lattigo_tpu.")]
+        assert not bad, bad
+
+
+def test_launch_target_must_be_in_the_port():
+    from lattigo_tpu_torch.parallel import launch
+    with pytest.raises(ValueError, match="lattigo_tpu_torch"):
+        launch.run(test_launch_target_must_be_in_the_port, 2, "cpu")
+
+
+def test_make_mesh_without_device_needs_cuda():
+    from lattigo_tpu_torch.parallel import make_mesh
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: make_mesh() would take it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
