@@ -30,7 +30,7 @@ Phases (one line each; any failure exits non-zero before the result):
 4. LMKCDEY blind rotation at Lattigo's blind-rotation parameters (BR ring
    logN 10, Q = 0x7fff801, P = 536881153; LWE ring logN 9, Q = 0x3001):
    key generation (512 RGSW keys, 11 Galois keys), then one LWE ciphertext
-   of 16 values x = -1 + 2i/16 blind-rotated through the sign test
+   of 8 values x = -1 + 2i/8 blind-rotated through the sign test
    polynomial slot by slot, decrypted, every slot with x != 0 checked
    against sign(x); launch counts zeroed before and read after, every
    distinct u32 kernel call held against the plain version; one LUT
@@ -203,9 +203,29 @@ Phases (one line each; any failure exits non-zero before the result):
    card with the JAX test's arguments: ms, the rings' NTT engines, the
    kernels' launches, every distinct kernel call held against the plain
    version; any failed assert fails the run;
-14. the card's name and power limit as nvidia-smi gives them, the
-   kernels' JSON line (the launches of phases 12 and 13 in
-   ``scale_out_launches`` and ``examples_launches``), and the result line.
+14. the GPU gate (``gpu_gate.py``, ``lattigo_tpu_torch.gate``): its four
+   gates on the card, the launch counts zeroed before and read after, every
+   distinct kernel call held against the plain version once more, and each
+   of the four kernel bodies launched;
+15. the bootstrap driver (``bench_bootstrap_torch.py --preset
+   N15QP768_H192_H32 --once``): seconds a bootstrap and ms per stage from
+   CUDA events, set-up and first-bootstrap seconds, the precision at phase
+   7's floor, peak device memory and the driver's JSON line; no kernel
+   launch;
+16. the comparison and inverse circuits on the real bootstrapper at the
+   published ``N16QP1546_H192_H32``, full logN 16 (2^15 slots, 25 Q
+   primes on the u64 four-step engine, 5 P primes on radix-2): its keys
+   from ``prepare_recipe``, a ``CircuitBootstrapper`` over the
+   ``BootstrappingEvaluator``; one X4 sign stage (``ComparisonEvaluator``)
+   on x ∈ ±[2^-8, 1] from level 2, which bootstraps first, and the
+   full-domain inverse on ±[2^-3, 2^2] from the bootstrap's output level
+   with a sign of 10 X4 stages; each held at a floor set from the JAX
+   package's CPU result at logN 8 less a bit, its ms, its bootstraps'
+   ms, output level; no kernel launch; peak device memory;
+17. the card's name and power limit as nvidia-smi gives them, the
+   kernels' JSON line (the launches of phases 12–16 in
+   ``scale_out_launches``, ``examples_launches``, ``gate_launches``,
+   ``driver_launches`` and ``btp16_launches``), and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
 nothing of JAX.
@@ -236,7 +256,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # each), four multiplies of the Montgomery product, its subtract-add, and
 # the butterfly's add and subtract
 U32_OPS_PER_BUTTERFLY = 12
-BR_SLOTS = 16
+# phase 4's LUT slots: each LUT costs ~6 s of host-bound launches, and 8
+# values cover both signs and zero
+BR_SLOTS = 8
 CKKS_DIAGS = 16
 # the CKKS step's precision floor (min, avg bits): the JAX package's
 # get_precision_stats on the same step, parameters and inputs (seed 1234,
@@ -2981,6 +3003,265 @@ def phase_examples(rows):
           + f"; the phase {time.perf_counter() - t_phase:.1f} s")
 
 
+
+# -- phase 14: the GPU gate; 15: the bootstrap driver; 16: circuits on the
+# real bootstrapper -------------------------------------------------------
+
+# phase 16: the published logN-16 preset with 10 residual primes (N15QP768
+# leaves three, too few for a sign stage): one X4 sign stage on x ∈ ±[2^-8,
+# 1] encrypted at level 2, below the stage's depth, so that it bootstraps
+# first, and the full-domain inverse of phase 8 on ±[2^-3, 2^2] from the
+# bootstrap's output level, its sign ending above level 0
+BTP16_PRESET = "N16QP1546_H192_H32"
+BTP16_SIGN_LEVEL = 2
+# floors (worst, mean bits): the JAX package's result on the CPU at this
+# preset cut to logN 8, same flow and inputs with its own keys
+# (python tests/test_torch_circuits_btp.py: sign stage 19.86 / 23.77,
+# inverse 8.81 / 9.59) less one bit; but the sign stage's worst slot
+# follows its bootstrap's, which falls with N (2^15 slots, not 2^7): its
+# floor is the JAX package's own bootstrap at this preset at full logN
+# 16, 18.9 worst bits on a TPU (README.md), less the stage's largest slope
+# (35/16, 1.13 bits), less one bit
+BTP16_MIN_BITS = {"sign stage": (16.77, 22.77), "inverse full domain": (7.81, 8.59)}
+
+
+def phase_gate(rows):
+    import torch
+    from lattigo_tpu_torch import gate
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    (res, mxu_calls, mxu), u32_calls, u32 = record_calls(
+        ntt_pallas, "u32_cuda", lambda: record_calls(
+            ntt_mxu, "four_step_cuda", lambda: gate.run("cuda")))
+    check(res["gate"] == "PASS", f"phase 14: gate {res['gate']}")
+    held, err = 0, 0
+    for module, fam, recorded in ((ntt_pallas, "u32", u32_calls),
+                                  (ntt_mxu, "four_step", mxu_calls)):
+        for eng, x, lo, inverse, lazy in recorded.values():
+            got = getattr(module, f"{fam}_cuda")(eng, x, lo, inverse, lazy)
+            want = getattr(module, f"{fam}_plain")(eng, x, lo, inverse, lazy)
+            e = int((got - want).abs().max())
+            err = max(err, e)
+            name = ("ntt_mxu" if fam == "four_step" else "ntt_u32") + (
+                "_inverse" if inverse else "_forward")
+            for r in rows:
+                if r["name"] == name:
+                    r["max_abs_err"] = max(r["max_abs_err"], e)
+            check(torch.equal(got, want), f"phase 14: {fam} kernel != plain at "
+                  f"{tuple(x.shape)} inverse={inverse} lazy={lazy}")
+        held += len(recorded)
+    counts = {"ntt_mxu": mxu, "ntt_pallas": u32}
+    for r in rows:
+        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
+        r["gate_launches"] = counts[fam]["inverse" if r["name"].endswith("inverse")
+                                         else "forward"]
+        check(r["gate_launches"] > 0, f"phase 14: {r['name']} not launched by the gate")
+    g = res["gates"]
+    print(f"phase 14 gate (gpu_gate.py): PASS on {res['device']['kind']}; gate_kat "
+          f"{g['gate_kat']['vectors']} {g['gate_kat']['source']} vectors N="
+          f"{g['gate_kat']['n']} on {g['gate_kat']['engines']}; gate_engines "
+          + ", ".join(f"{c['engine']} logN {c['log_n']} {c['bits']}-bit ({c['checks']} "
+                      f"checks)" for c in g["gate_engines"]["chains"])
+          + f", ModUp {g['gate_engines']['mod_up']}; gate_bootstrap logN 8 "
+          f"{g['gate_bootstrap']['worst_bits']:.2f} / {g['gate_bootstrap']['mean_bits']:.2f} "
+          f"bits; gate_preset {g['gate_preset']['preset']} logN {g['gate_preset']['log_n']} "
+          f"{g['gate_preset']['worst_bits']:.2f} / {g['gate_preset']['mean_bits']:.2f} bits "
+          f"(floor {g['gate_preset']['floor']}); seconds " + ", ".join(
+              f"{k} {v['s']:.1f}" for k, v in g.items())
+          + f"; launches four-step {mxu}, u32 {u32}; {held} distinct kernel calls held "
+          f"against the plain version (max |err| {err}); the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_bootstrap_driver(rows):
+    import torch
+    from lattigo_tpu_torch.circuits import bootstrap_driver
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    t_phase = time.perf_counter()
+    ntt_mxu.reset_launches()
+    ntt_pallas.reset_launches()
+    res = bootstrap_driver.run(preset=BTP_PRESET, once=True, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
+    for r in rows:
+        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
+        r["driver_launches"] = launches[fam]["inverse" if r["name"].endswith("inverse")
+                                             else "forward"]
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"phase 15: a kernel launched on the mxu64-plain bootstrap: {launches}")
+    check(res["engine"] == "mxu64-plain", f"phase 15: ring Q on {res['engine']}")
+    check(res["precision_bits"] >= BTP_MIN_BITS[0]
+          and res["precision_avg_bits"] >= BTP_MIN_BITS[1],
+          f"phase 15: precision {res['precision_bits']:.2f} / "
+          f"{res['precision_avg_bits']:.2f} bits below the floor {BTP_MIN_BITS}")
+    print(f"phase 15 bootstrap driver (bench_bootstrap_torch.py --preset {BTP_PRESET} "
+          f"--once): logN {res['log_n']}, {res['slots']} slots on {res['engine']}; "
+          f"{res['value'] * 1e3:.1f} ms a bootstrap (CUDA events), by stage "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["stage_ms"].items())
+          + f" ms; set-up {res['setup_s']:.1f} s, first bootstrap {res['first_s']:.1f} s; "
+          f"precision worst {res['precision_bits']:.2f} / mean "
+          f"{res['precision_avg_bits']:.2f} bits (floor {BTP_MIN_BITS[0]} / "
+          f"{BTP_MIN_BITS[1]}); peak device memory {res['peak_mib']:.1f} MiB "
+          f"({held_mb:.1f} held by earlier phases at the start); kernel launches "
+          f"{launches}; the phase {time.perf_counter() - t_phase:.1f} s")
+    print("phase 15 driver line: " + json.dumps(res))
+
+
+def btp16_inputs(slots: int) -> dict:
+    """Phase 16's seeded numpy inputs: the sign stage's x ∈ ±[2^-8, 1] and
+    the inverse's x ∈ ±[2^-3, 2^2]."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+
+    def signed(lo, hi):
+        return rng.uniform(lo, hi, slots) * rng.choice([-1.0, 1.0], slots)
+
+    return dict(sign_x=signed(2.0 ** -CIRC_ALPHA, 1.0), inv_x=signed(2.0 ** -3, 2.0 ** 2))
+
+
+def x4_sign_stage(x):
+    """One X4 sign stage, (35x − 35x³ + 21x⁵ − 5x⁷)/16, in numpy."""
+    return (35 * x - 35 * x ** 3 + 21 * x ** 5 - 5 * x ** 7) / 16
+
+
+def circuits_btp_flow(device, log_n: int | None = None, timed=None):
+    """Phase 16's circuits at ``BTP16_PRESET`` (logN cut to ``log_n`` when
+    given) with the real bootstrapper between stages, set up by
+    ``prepare_recipe`` with the seed ``SEED``: {name: (run, check,
+    bootstrapper)}, where run() evaluates the circuit and check(out) gives
+    its (worst, mean) bits; and the set-up's objects."""
+    import torch
+    from lattigo_tpu_torch import rlwe
+    from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
+    from lattigo_tpu_torch.circuits.bootstrapping import CircuitBootstrapper
+    from lattigo_tpu_torch.circuits.comparison import ComparisonEvaluator
+    from lattigo_tpu_torch.circuits.inverse import InverseEvaluator
+    from lattigo_tpu_torch.circuits.minimax import SIGN_X4_CHEBY
+    from lattigo_tpu_torch.schemes import ckks
+
+    r = bp.prepare_recipe(getattr(bp, BTP16_PRESET), log_n=log_n, seed=SEED,
+                          data_seed=SEED, device=device, timed=timed)
+    params, b, keys = r["params"], r["evaluator"], r["keys"]
+    check(params.galois_element_order_two in r["galois_keys"],
+          "phase 16: the bootstrap's keys lack the conjugation key")
+    x = btp16_inputs(params.max_slots)
+    enc = ckks.Encoder(params)
+    gen = torch.Generator(device=params.device).manual_seed(SEED * 16)
+    encryptor, dec = rlwe.Encryptor(params, r["sk"]), rlwe.Decryptor(params, r["sk"])
+
+    def decrypt(ct):
+        return enc.decode(dec.decrypt(ct)).real
+
+    sign_btp = CircuitBootstrapper(b, keys)
+    inv_btp = CircuitBootstrapper(b, keys, minimum_input_level=CIRC_INV_MIN_LEVEL)
+    ce = ComparisonEvaluator(b.ev, sign_polys=[SIGN_X4_CHEBY], bootstrapper=sign_btp)
+    ie = InverseEvaluator(b.ev, bootstrapper=inv_btp,
+                          sign_polys=[SIGN_X4_CHEBY] * CIRC_X4_STAGES)
+    ct_sign = encryptor.encrypt(gen, enc.encode(x["sign_x"])).at_level(BTP16_SIGN_LEVEL)
+    ct_inv = encryptor.encrypt(gen, enc.encode(x["inv_x"])).at_level(b.output_level)
+    circuits = {
+        "sign stage": (lambda: ce.sign(ct_sign), lambda out: bp.precision_bits(
+            decrypt(out), x4_sign_stage(x["sign_x"])), sign_btp),
+        "inverse full domain": (
+            lambda: ie.evaluate_full_domain(ct_inv, -3.0, 2.0),
+            lambda out: bp.precision_bits(decrypt(out) * x["inv_x"], 1.0), inv_btp),
+    }
+    return dict(params=params, btp=b, circuits=circuits, inputs=x, decrypt=decrypt,
+                levels={"sign stage": ct_sign.level, "inverse full domain": ct_inv.level},
+                galois_keys=len(r["galois_keys"]))
+
+
+def phase_circuits_btp(rows, log_n: int | None = None):
+    import torch
+    from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    setup = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        setup[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    res = circuits_btp_flow("cuda", log_n, timed)
+    params = res["params"]
+    # three of P's five 61-bit primes lie above 2^61, off the u64 four-step
+    # engine's range (the reference's rule too): radix-2
+    engines = {"Q": params.ring_q.ntt_engine, "P": params.ring_p.ntt_engine}
+    check(engines == {"Q": "mxu64-plain", "P": "radix2-plain"},
+          f"phase 16 rings on {engines}")
+    setup_mb = torch.cuda.max_memory_allocated() / 2**20
+    ntt_mxu.reset_launches()
+    ntt_pallas.reset_launches()
+    results, first_boot = {}, []
+    for name, (run, chk, btp) in res["circuits"].items():
+        boot_ms = []
+        inner = btp.bootstrap
+
+        def timed_bootstrap(ct, _inner=inner, _ms=boot_ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _inner(ct)
+            torch.cuda.synchronize()
+            _ms.append((time.perf_counter() - t0) * 1e3)
+            if not first_boot:
+                first_boot.append(out)
+            return out
+
+        btp.bootstrap = timed_bootstrap
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        btp.bootstrap = inner
+        worst, mean = chk(out)
+        floor = BTP16_MIN_BITS[name]
+        check(btp.counter > 0, f"phase 16 {name}: no bootstrap ran")
+        check(worst >= floor[0] and mean >= floor[1],
+              f"phase 16 {name}: worst {worst:.2f} / mean {mean:.2f} bits below the "
+              f"floor {floor[0]} / {floor[1]}")
+        results[name] = (ms, boot_ms, worst, mean, out.level)
+    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
+    for r in rows:
+        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
+        r["btp16_launches"] = launches[fam]["inverse" if r["name"].endswith("inverse")
+                                            else "forward"]
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"phase 16: a kernel launched on the mxu64-plain rings: {launches}")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # the sign stage's bootstrap alone: its output against the encrypted x
+    boot_bits = bp.precision_bits(res["decrypt"](first_boot[0]), res["inputs"]["sign_x"])
+    print(f"phase 16 circuits on the real bootstrapper: CKKS {BTP16_PRESET} logN="
+          f"{params.log_n} Q={len(params.q_moduli)} primes "
+          f"{sorted({q.bit_length() for q in params.q_moduli})}-bit, P="
+          f"{[p.bit_length() for p in params.p_moduli]}; rings on {engines}; set-up ms: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in setup.items())
+          + f" ({res['galois_keys']} Galois keys); " + "; ".join(
+              f"{k} from level {res['levels'][k]}: {ms:.1f} ms, {len(b)} bootstraps of "
+              + "/".join(f"{t:.1f}" for t in b) + f" ms, output level {lvl}, worst "
+              f"{w:.2f} / mean {m:.2f} bits (floor {BTP16_MIN_BITS[k][0]} / "
+              f"{BTP16_MIN_BITS[k][1]})" for k, (ms, b, w, m, lvl) in results.items())
+          + f"; the sign stage's bootstrap alone worst {boot_bits[0]:.2f} / mean "
+          f"{boot_bits[1]:.2f} bits; kernel launches {launches}; peak device memory {peak_mb:.1f} MiB "
+          f"({setup_mb:.1f} over the set-up; {held_mb:.1f} held by earlier phases at "
+          f"the start); the phase {time.perf_counter() - t_phase:.1f} s")
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3009,6 +3290,9 @@ def main() -> int:
     phase_digit_matmul(rows)
     phase_scale_out(rows)
     phase_examples(rows)
+    phase_gate(rows)
+    phase_bootstrap_driver(rows)
+    phase_circuits_btp(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

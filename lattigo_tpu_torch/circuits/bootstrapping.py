@@ -510,6 +510,46 @@ class BootstrappingEvaluator:
         return lvls
 
 
+class CircuitBootstrapper:
+    """A :class:`BootstrappingEvaluator` behind the interface the circuits
+    call (``bootstrap(ct)``, ``minimum_input_level``, ``counter``): the real
+    counterpart of :class:`SecretKeyBootstrapper`, for the minimax
+    composite, comparison and inverse evaluators.
+
+    It holds the encapsulation keys the pipeline takes, and brings each
+    output to the parameters' default scale with one
+    :meth:`~lattigo_tpu_torch.schemes.ckks.Evaluator.set_scale` (a level).
+    The pipeline ends at scale Δ'·Δ₀/q₀ (2^52 at ``N16QP1546_H192_H32``,
+    whose default scale is 2^40), and a polynomial stage on such an input
+    encodes its constants at target·q/σ(T_k) < 1, where they round away:
+    an X4 stage after a bootstrap keeps 4 of its 19 bits at logN 8 without
+    the set_scale. ``minimum_input_level`` (0 unless raised, as the
+    secret-key bootstrapper's) is what the circuits plan their bootstraps
+    by; ``InverseEvaluator.evaluate_full_domain`` needs 1.
+    """
+
+    def __init__(self, evaluator: BootstrappingEvaluator,
+                 keys: BootstrappingKeys | None = None,
+                 minimum_input_level: int | None = None):
+        self.evaluator = evaluator
+        self.keys = keys
+        self.counter = 0
+        self._min_level = (evaluator.minimum_input_level if minimum_input_level is None
+                           else minimum_input_level)
+
+    @property
+    def minimum_input_level(self) -> int:
+        return self._min_level
+
+    def bootstrap(self, ct: Ciphertext) -> Ciphertext:
+        out = self.evaluator.bootstrap(ct, self.keys)
+        self.counter += 1
+        scale = self.evaluator.params.default_scale_fraction
+        if Fraction(out.scale) != scale:
+            out = self.evaluator.ev.set_scale(out, scale)
+        return out
+
+
 class SecretKeyBootstrapper:
     """Debug decrypt-then-reencrypt "bootstrapper" (ref
     bootstrapping/sk_bootstrapper.go:68): implements the same interface as

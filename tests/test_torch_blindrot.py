@@ -38,6 +38,16 @@ GAL_ELS = sorted({pow(5, v, 1024) for v in range(1, 11)} | {1024 - 5})
 POWERS = (3, 700, -1)            # X^3, X^700 = −X^188, X^{-1} = −X^511
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def sign(x):
     return 1.0 if x > 0 else (-1.0 if x < 0 else 0.0)
 

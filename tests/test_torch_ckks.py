@@ -29,6 +29,16 @@ LOG_N, LOG_Q, LOG_P, LOG_SCALE = 12, (28,) * 5, (28, 28), 28
 BATCH = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _literal(mod):
     return mod.ParametersLiteral(log_n=LOG_N, log_q=LOG_Q, log_p=LOG_P,
                                  log_default_scale=LOG_SCALE)

@@ -36,6 +36,16 @@ from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
 
 # -- shared draws ---------------------------------------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class Draws:
     """The i-th sampler call on one side gets the i-th numpy draw."""
 

@@ -42,6 +42,16 @@ DIAG_SETS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", list(DIAG_SETS))
 @pytest.mark.parametrize("ratio", [0, 1, -1])
 def test_bsgs_split_and_index(name, ratio):

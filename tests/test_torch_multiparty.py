@@ -37,6 +37,16 @@ N_PARTIES = 3
 POINTS, THRESHOLD, ACTIVE = (1, 2, 3, 4), 3, (1, 2, 4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_qp(j, t):
     """A JAX QPPoly (or list / tuple of them) equals the port's."""
     if not hasattr(j, "q"):                           # a list / tuple of them

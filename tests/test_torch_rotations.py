@@ -51,6 +51,16 @@ BGV_OPS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ckks_gal_els(ev, p):
     els = {p.galois_element(k) for k in (1, -3, 7)}
     els.add(p.galois_element_order_two)

@@ -40,6 +40,16 @@ KEY = jax.random.PRNGKey(0)
 GEN = torch.Generator().manual_seed(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _keys(pj, pt, seed):
     """Party secret keys from shared ternary coefficients, both packages,
     and the ideal key Σ s_i."""
