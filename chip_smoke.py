@@ -30,7 +30,7 @@ Phases (one line each; any failure exits non-zero before the result):
 4. LMKCDEY blind rotation at Lattigo's blind-rotation parameters (BR ring
    logN 10, Q = 0x7fff801, P = 536881153; LWE ring logN 9, Q = 0x3001):
    key generation (512 RGSW keys, 11 Galois keys), then one LWE ciphertext
-   of 8 values x = -1 + 2i/8 blind-rotated through the sign test
+   of 16 values x = -1 + 2i/16 blind-rotated through the sign test
    polynomial slot by slot, decrypted, every slot with x != 0 checked
    against sign(x); launch counts zeroed before and read after, every
    distinct u32 kernel call held against the plain version; one LUT
@@ -220,8 +220,11 @@ Phases (one line each; any failure exits non-zero before the result):
    on x ∈ ±[2^-8, 1] from level 2, which bootstraps first, and the
    full-domain inverse on ±[2^-3, 2^2] from the bootstrap's output level
    with a sign of 10 X4 stages; each held at a floor set from the JAX
-   package's CPU result at logN 8 less a bit, its ms, its bootstraps'
-   ms, output level; no kernel launch; peak device memory;
+   package's CPU result at logN 8 less a bit (the sign stage's worst
+   slot: from the next hold), its ms, its bootstraps' ms, output level;
+   the sign stage's bootstrap alone held at the JAX package's own
+   full-degree bootstrap less a bit, with the count of its slots 4 bits
+   or more under its mean; no kernel launch; peak device memory;
 17. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line (the launches of phases 12–16 in
    ``scale_out_launches``, ``examples_launches``, ``gate_launches``,
@@ -256,9 +259,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # each), four multiplies of the Montgomery product, its subtract-add, and
 # the butterfly's add and subtract
 U32_OPS_PER_BUTTERFLY = 12
-# phase 4's LUT slots: each LUT costs ~6 s of host-bound launches, and 8
-# values cover both signs and zero
-BR_SLOTS = 8
+BR_SLOTS = 16
 CKKS_DIAGS = 16
 # the CKKS step's precision floor (min, avg bits): the JAX package's
 # get_precision_stats on the same step, parameters and inputs (seed 1234,
@@ -3014,14 +3015,17 @@ def phase_examples(rows):
 # bootstrap's output level, its sign ending above level 0
 BTP16_PRESET = "N16QP1546_H192_H32"
 BTP16_SIGN_LEVEL = 2
-# floors (worst, mean bits): the JAX package's result on the CPU at this
-# preset cut to logN 8, same flow and inputs with its own keys
+# the sign stage's bootstrap alone (worst, mean bits): the JAX package's
+# own bootstrap at this preset at full logN 16, 18.9 / 22.7 bits over 2^15
+# slots (README.md; measured on a TPU), less one bit
+BTP16_BOOT_MIN_BITS = (17.9, 21.7)
+# the circuits (worst, mean bits): the JAX package's result on the CPU at
+# this preset cut to logN 8, same flow and inputs with its own keys
 # (python tests/test_torch_circuits_btp.py: sign stage 19.86 / 23.77,
-# inverse 8.81 / 9.59) less one bit; but the sign stage's worst slot
-# follows its bootstrap's, which falls with N (2^15 slots, not 2^7): its
-# floor is the JAX package's own bootstrap at this preset at full logN
-# 16, 18.9 worst bits on a TPU (README.md), less the stage's largest slope
-# (35/16, 1.13 bits), less one bit
+# inverse 8.81 / 9.59) less one bit; but the sign stage's worst slot, the
+# worst of 2^15 and not of 2^7, is its bootstrap's worst times the stage's
+# slope: its floor is the bootstrap's above less that slope's largest
+# value (35/16, 1.13 bits)
 BTP16_MIN_BITS = {"sign stage": (16.77, 22.77), "inverse full domain": (7.81, 8.59)}
 
 
@@ -3061,7 +3065,7 @@ def phase_gate(rows):
         check(r["gate_launches"] > 0, f"phase 14: {r['name']} not launched by the gate")
     g = res["gates"]
     print(f"phase 14 gate (gpu_gate.py): PASS on {res['device']['kind']}; gate_kat "
-          f"{g['gate_kat']['vectors']} {g['gate_kat']['source']} vectors N="
+          f"{g['gate_kat']['vectors']} definition vectors N="
           f"{g['gate_kat']['n']} on {g['gate_kat']['engines']}; gate_engines "
           + ", ".join(f"{c['engine']} logN {c['log_n']} {c['bits']}-bit ({c['checks']} "
                       f"checks)" for c in g["gate_engines"]["chains"])
@@ -3245,8 +3249,14 @@ def phase_circuits_btp(rows, log_n: int | None = None):
     check(all(v == 0 for d in launches.values() for v in d.values()),
           f"phase 16: a kernel launched on the mxu64-plain rings: {launches}")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    # the sign stage's bootstrap alone: its output against the encrypted x
-    boot_bits = bp.precision_bits(res["decrypt"](first_boot[0]), res["inputs"]["sign_x"])
+    # the sign stage's bootstrap alone: its output against the encrypted x,
+    # and how many of its slots lie 4 bits or more under its mean
+    boot_out = res["decrypt"](first_boot[0])
+    boot_bits = bp.precision_bits(boot_out, res["inputs"]["sign_x"])
+    boot_tail = int((abs(boot_out - res["inputs"]["sign_x"]) > 2.0 ** (4 - boot_bits[1])).sum())
+    check(boot_bits[0] >= BTP16_BOOT_MIN_BITS[0] and boot_bits[1] >= BTP16_BOOT_MIN_BITS[1],
+          f"phase 16: the sign stage's bootstrap {boot_bits[0]:.2f} / {boot_bits[1]:.2f} "
+          f"bits below the floor {BTP16_BOOT_MIN_BITS[0]} / {BTP16_BOOT_MIN_BITS[1]}")
     print(f"phase 16 circuits on the real bootstrapper: CKKS {BTP16_PRESET} logN="
           f"{params.log_n} Q={len(params.q_moduli)} primes "
           f"{sorted({q.bit_length() for q in params.q_moduli})}-bit, P="
@@ -3258,7 +3268,9 @@ def phase_circuits_btp(rows, log_n: int | None = None):
               f"{w:.2f} / mean {m:.2f} bits (floor {BTP16_MIN_BITS[k][0]} / "
               f"{BTP16_MIN_BITS[k][1]})" for k, (ms, b, w, m, lvl) in results.items())
           + f"; the sign stage's bootstrap alone worst {boot_bits[0]:.2f} / mean "
-          f"{boot_bits[1]:.2f} bits; kernel launches {launches}; peak device memory {peak_mb:.1f} MiB "
+          f"{boot_bits[1]:.2f} bits (floor {BTP16_BOOT_MIN_BITS[0]} / "
+          f"{BTP16_BOOT_MIN_BITS[1]}), {boot_tail} of {len(boot_out)} slots 4 bits or "
+          f"more under its mean; kernel launches {launches}; peak device memory {peak_mb:.1f} MiB "
           f"({setup_mb:.1f} over the set-up; {held_mb:.1f} held by earlier phases at "
           f"the start); the phase {time.perf_counter() - t_phase:.1f} s")
 

@@ -42,7 +42,6 @@ import sys
 import time
 from dataclasses import replace
 
-import numpy as np
 import torch
 
 from lattigo_tpu_torch.device import resolve_device
@@ -109,46 +108,21 @@ def run(log_n: int = 13, batch: int = 1, preset: str | None = None,
         preset_log_n: int | None = None, once: bool = False, device=None,
         seed: int = 0) -> dict:
     """Set up, bootstrap and measure (see the module's docstring); returns
-    the JSON line's fields. Keys and the encryption draw from
-    ``torch.Generator``s seeded from ``seed``; the slots from numpy's seed
-    1, uniform in [-1, 1) + i[-1, 1)."""
-    from lattigo_tpu_torch import rlwe
-    from lattigo_tpu_torch.circuits import bootstrapping as bts
+    the JSON line's fields. The set-up is the presets' own
+    :func:`~lattigo_tpu_torch.circuits.bootstrapping_presets.prepare_recipe`
+    with ``seed`` (keys and encryption from ``torch.Generator``s, the slots
+    from numpy's seed 1)."""
     from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
-    from lattigo_tpu_torch.schemes import ckks
 
     device = resolve_device(device)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     name, residual, lit = parameters(log_n, preset, preset_log_n)
-    log_n = residual.log_n
     t0 = time.perf_counter()
-    full, btp = bp.build_bootstrapping_parameters(residual, lit)
-    params = ckks.Parameters(full, device)
-    g_sk, g_rlk, g_gk, g_ct, g_enc = (torch.Generator(device=device).manual_seed(seed * 5 + i)
-                                      for i in range(5))
-    kgen = rlwe.KeyGenerator(params)
-    sk = kgen.gen_secret_key(g_sk)
-    rlk = kgen.gen_relinearization_key(g_rlk, sk)
-    enc = ckks.Encoder(params)
-    b = bts.BootstrappingEvaluator(params, ckks.Evaluator(
-        params, rlwe.EvaluationKeySet(relinearization_key=rlk)), enc, btp)
-    # chunks of 2 bound the batched key generation's transient memory at
-    # logN ≥ 15; level-scoped keys shrink the resident set
-    gks = kgen.gen_galois_keys(g_gk, b.galois_elements(), sk,
-                               chunk=2 if log_n >= 15 else 8,
-                               levels=b.galois_element_levels())
-    b.with_evaluator(ckks.Evaluator(params, rlwe.EvaluationKeySet(
-        relinearization_key=rlk, galois_keys=gks)))
-    del gks
-    keys = b.gen_encapsulation_keys(g_enc, sk)
-    rng = np.random.default_rng(1)
-    v = (rng.uniform(-1, 1, params.max_slots)
-         + 1j * rng.uniform(-1, 1, params.max_slots))
-    shape = (batch,) if batch > 1 else ()
-    ct = rlwe.Encryptor(params, sk).encrypt(g_ct, enc.encode(v), batch=shape)
-    ct = ct.at_level(b.minimum_input_level)
+    r = bp.prepare_recipe((residual, lit), log_n=preset_log_n if preset else None,
+                          seed=seed, device=device, batch=batch)
+    params, b, keys, ct, v = r["params"], r["evaluator"], r["keys"], r["ct"], r["slots"]
     _sync(device)
     setup_s = time.perf_counter() - t0
 
@@ -181,12 +155,11 @@ def run(log_n: int = 13, batch: int = 1, preset: str | None = None,
     out = b.bootstrap(ct, keys, on_stage=lambda stage, _ct: clock.mark(stage))
     stage_ms = {k: clock.ms(a, z) for k, a, z in STAGES}
     out0 = out if batch == 1 else out.replace(value=out.value[0])
-    got = enc.decode(rlwe.Decryptor(params, sk).decrypt(out0))
-    worst, avg = bp.precision_bits(got, v)
+    worst, avg = bp.precision_bits(r["decode"](out0), v)
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if cuda else None
     return {
         "metric": f"ckks_bootstrap_{name}", "value": per, "unit": "s/bootstrap",
-        "batch": batch, "log_n": log_n, "slots": params.max_slots,
+        "batch": batch, "log_n": params.log_n, "slots": params.max_slots,
         "setup_s": setup_s, "first_s": first_s,
         "precision_bits": worst, "precision_avg_bits": avg,
         "windows": windows, "iters": iters, "spread": spread,

@@ -213,7 +213,7 @@ N15QP880_H16384_H32 = (
 
 def prepare_recipe(preset, log_n: int | None = None, seed: int = 0,
                    data_seed: int = 1, device=None, timed=None,
-                   pack_log_slots: int | None = None) -> dict:
+                   pack_log_slots: int | None = None, batch: int = 1) -> dict:
     """Set up a preset's exact chain/mod1/factorization at (optionally
     reduced) ring degree on ``device`` (CUDA unless named): the parameters,
     the bootstrapping evaluator with its relinearization and level-scoped
@@ -225,10 +225,11 @@ def prepare_recipe(preset, log_n: int | None = None, seed: int = 0,
     ``timed(label, fn)``, when given, runs each key and matrix set-up step
     as fn() and returns its result (e.g. to time it). ``pack_log_slots``
     adds the Galois keys of the sparse ``bootstrap_many``'s pack tree at
-    that slot count (``packing_galois_elements``, at their levels). Returns
-    a dict with ``params``, ``evaluator``, ``keys``, ``galois_keys``,
-    ``sk``, ``ct``, ``slots`` and ``decode`` (a bootstrapped ciphertext →
-    its decrypted slots).
+    that slot count (``packing_galois_elements``, at their levels).
+    ``batch`` > 1 encrypts the slots that many times, on a leading axis of
+    the ciphertext. Returns a dict with ``params``, ``evaluator``,
+    ``keys``, ``galois_keys``, ``sk``, ``ct``, ``slots`` and ``decode`` (a
+    bootstrapped ciphertext → its decrypted slots).
     """
     import numpy as np
     import torch
@@ -269,7 +270,8 @@ def prepare_recipe(preset, log_n: int | None = None, seed: int = 0,
     v = (rng.uniform(-1, 1, params.max_slots)
          + 1j * rng.uniform(-1, 1, params.max_slots))
     ct = rlwe.Encryptor(params, sk).encrypt(
-        g_ct, enc.encode(v)).at_level(b.minimum_input_level)
+        g_ct, enc.encode(v), batch=(batch,) if batch > 1 else ()
+    ).at_level(b.minimum_input_level)
     dec = rlwe.Decryptor(params, sk)
     return dict(params=params, evaluator=b, keys=keys, galois_keys=gks, sk=sk,
                 ct=ct, slots=v, decode=lambda out: enc.decode(dec.decrypt(out)))

@@ -7,11 +7,9 @@ or that parts from its plain version at a shape only the card runs. The
 gate runs what only means something there:
 
 1. :func:`gate_kat`: known-answer NTT vectors, bit-exact, forward and
-   back. With a Lattigo source tree (``reference``) they are Lattigo's
-   own (``ring/ntt_test.go``, read as the JAX package's test reads it);
-   without one, vectors of the same sizes (N = 16 … 512, two 60-bit
-   primes) whose answers come from the definition of the negacyclic
-   transform, evaluated with Python integers: NTT(a)_j = a(ψ^{2·brev(j)+1}).
+   back: vectors of Lattigo's sizes (N = 16 … 512, two 60-bit primes)
+   whose answers come from the definition of the negacyclic transform,
+   evaluated with Python integers: NTT(a)_j = a(ψ^{2·brev(j)+1}).
 2. :func:`gate_engines`: every engine a ring can take, against radix-2:
    the four-step kernel (``csrc/ntt_mxu.cu``) and the u32 kernel
    (``csrc/ntt_pallas.cu``), forward and inverse, lazy and not, each also
@@ -24,7 +22,7 @@ gate runs what only means something there:
    logN 10, worst ≥ 15.0 / mean ≥ 17.0 bits (``--full``: at logN 15, worst
    ≥ 12.0 / mean ≥ 14.5), the thresholds of ``tpu_gate.py``.
 
-    python3 gpu_gate.py [--device cpu] [--full] [--reference DIR]
+    python3 gpu_gate.py [--device cpu] [--full]
 
 runs on the card unless ``--device cpu`` is given, and raises without one.
 A failing gate raises: nothing is caught, and the process exits non-zero
@@ -36,9 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,28 +56,6 @@ def _check(cond: bool, msg: str) -> None:
 
 
 # -- known answers ------------------------------------------------------------
-
-def parse_lattigo_vectors(path) -> list[tuple]:
-    """Lattigo's NTT test vectors from ``ring/ntt_test.go``: [(N, moduli,
-    poly, poly_ntt)] with uint64 [L, N] arrays (the parser of the JAX
-    package's ``tests/test_lattigo_vectors.py``)."""
-    src = Path(path).read_text()
-    body = src[src.index("= []struct"):src.index("func TestNTT")]
-    entries = []
-    for chunk in re.split(r"\n\t\{\n", body)[1:]:
-        n = int(re.match(r"\s*(\d+),", chunk).group(1))
-        qis = [int(x) for x in
-               re.search(r"\[\]uint64\{([^}]*)\}", chunk).group(1).split(",")]
-        polys = re.findall(r"Poly\{\[\]\[\]uint64\{(.*?)\}\}", chunk, re.S)
-
-        def rows(p):
-            return [[int(x) for x in r.split(",") if x.strip()]
-                    for r in re.findall(r"\{([^{}]*)\}", p)]
-
-        entries.append((n, qis, np.array(rows(polys[0]), dtype=np.uint64),
-                        np.array(rows(polys[1]), dtype=np.uint64)))
-    return entries
-
 
 def negacyclic_ntt_definition(poly, moduli, n: int) -> np.ndarray:
     """NTT(a)_j = Σ_k a_k ψ^{(2·brev(j)+1)·k} mod q for each limb, in Python
@@ -113,20 +87,12 @@ def definition_vectors(seed: int = 0) -> list[tuple]:
     return out
 
 
-def kat_vectors(reference=None) -> tuple[str, list[tuple]]:
-    """(source, vectors): Lattigo's from a source tree ``reference``, else
-    :func:`definition_vectors`."""
-    if reference is not None:
-        return "lattigo", parse_lattigo_vectors(Path(reference) / "ring" / "ntt_test.go")
-    return "definition", definition_vectors()
-
-
-def gate_kat(device, reference=None) -> dict:
+def gate_kat(device) -> dict:
     """Each known-answer vector bit-exact through the ring's NTT, and back."""
     from lattigo_tpu_torch import interop
     from lattigo_tpu_torch.ring.ring import Ring
 
-    source, vectors = kat_vectors(reference)
+    vectors = definition_vectors()
     _check(len(vectors) > 0, "no known-answer vectors")
     engines = []
     for n, qis, poly, poly_ntt in vectors:
@@ -136,7 +102,7 @@ def gate_kat(device, reference=None) -> dict:
         _check(np.array_equal(interop.to_numpy(got), poly_ntt), f"KAT N={n}: NTT differs")
         _check(torch.equal(ring.intt(got), x), f"KAT N={n}: INTT differs")
         engines.append(ring.ntt_engine)
-    return dict(source=source, vectors=len(vectors), n=[v[0] for v in vectors],
+    return dict(vectors=len(vectors), n=[v[0] for v in vectors],
                 engines=sorted(set(engines)))
 
 
@@ -323,7 +289,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def run(device=None, full: bool = False, reference=None) -> dict:
+def run(device=None, full: bool = False) -> dict:
     """Run the four gates in order on ``device`` (CUDA unless named); the
     first failure raises. Returns each gate's result with its seconds and
     the kernels' launches over the run."""
@@ -331,7 +297,7 @@ def run(device=None, full: bool = False, reference=None) -> dict:
 
     device = resolve_device(device)
     gates = {
-        "gate_kat": lambda: gate_kat(device, reference),
+        "gate_kat": lambda: gate_kat(device),
         "gate_engines": lambda: gate_engines(device, full),
         "gate_bootstrap": lambda: gate_bootstrap(device),
         "gate_preset": (lambda: gate_preset(device, None, 12.0, 14.5)) if full
@@ -357,8 +323,6 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA card; 'cpu' to run there)")
     ap.add_argument("--full", action="store_true",
                     help="more prime classes, and the preset at its full logN 15")
-    ap.add_argument("--reference", default=None,
-                    help="a Lattigo source tree: gate_kat reads its ring/ntt_test.go")
     a = ap.parse_args(argv)
-    print(json.dumps(run(a.device, a.full, a.reference)), flush=True)
+    print(json.dumps(run(a.device, a.full)), flush=True)
     return 0

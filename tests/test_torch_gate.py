@@ -6,9 +6,6 @@ the CPU, where every engine is its plain version.
   Python integers) go through the JAX package's own ``tpu_gate.gate_kat``,
   as the JAX tests run it on the CPU: its jitted NTT and INTT must be
   bit-exact to them. The port's ``gate_kat`` passes on the same vectors.
-  Where Lattigo's source tree is present (the file the JAX package's
-  ``tests/test_lattigo_vectors.py`` reads), both packages' parsers read the
-  same vectors from it and the port's gate passes on them.
 * ``gate_engines`` on the gate's engine classes at logN ≤ 13: the four-step
   and u32 plain versions and the u64 four-step engine equal to radix-2, the
   ModUp digit matmul equal to the raw multiply-accumulate;
@@ -18,7 +15,6 @@ the CPU, where every engine is its plain version.
   the run with the gate's error, and nothing is caught.
 """
 
-import os
 import sys
 from pathlib import Path
 
@@ -46,8 +42,7 @@ def _one_torch_thread():
 
 
 def test_kat_bit_exact_to_jax_gate(monkeypatch):
-    source, vectors = gate.kat_vectors()
-    assert source == "definition"
+    vectors = gate.definition_vectors()
     assert [v[0] for v in vectors] == [16, 32, 64, 128, 256, 512]
     assert all(len(v[1]) == 2 and all(q.bit_length() == 60 for q in v[1]) for v in vectors)
     monkeypatch.syspath_prepend(str(ROOT))
@@ -57,20 +52,6 @@ def test_kat_bit_exact_to_jax_gate(monkeypatch):
     tpu_gate.gate_kat()
     res = gate.gate_kat("cpu")
     assert res["vectors"] == 6 and res["engines"] == ["radix2-plain"]
-
-
-def test_kat_lattigo_vectors():
-    if not os.path.exists(jvec.REF):
-        pytest.skip("Lattigo's source tree is not available")
-    ref = Path(jvec.REF).parents[1]
-    source, vectors = gate.kat_vectors(ref)
-    want = jvec._parse_reference_vectors()
-    assert source == "lattigo" and len(vectors) == len(want)
-    for (n, q, a, b), (wn, wq, wa, wb) in zip(vectors, want):
-        assert (n, q) == (wn, wq)
-        np.testing.assert_array_equal(a, wa)
-        np.testing.assert_array_equal(b, wb)
-    assert gate.gate_kat("cpu", ref)["source"] == "lattigo"
 
 
 def test_engines_against_radix2():
@@ -106,8 +87,7 @@ def test_entry_without_card_raises():
 
 
 def test_broken_gate_fails_the_run(monkeypatch):
-    _, vectors = gate.kat_vectors()
-    n, q, a, b = vectors[0]
+    n, q, a, b = gate.definition_vectors()[0]
     b = b.copy()
     b[0, 3] ^= np.uint64(1)
     monkeypatch.setattr(gate, "definition_vectors", lambda: [(n, q, a, b)])
