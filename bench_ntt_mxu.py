@@ -11,6 +11,10 @@ script), builds its four-step kernel and prints one JSON line with:
   kernel's device us per launch from ``torch.profiler`` over as many
   launches (``device_us``), and the blocks per (limb, polynomial) the tree
   picks (``split``; null for trees that have one block per pair);
+* ``wide``: the same at the logN 15 and 16 shapes of ``chip_smoke.py``'s
+  phase 2 (4 x 31 x 32768 and 2 x 62 x 65536, where a call is two
+  launches, one a step: ``device_us`` is per launch, ``launches_per_call``
+  says how many a call makes), for trees whose kernel has them;
 * ``path``: the same for every distinct call of one BGV request
   (``chip_smoke.bgv_server``: encrypt, ``rescale(mul_relin)``, decrypt),
   with its shape, limb offset and direction;
@@ -116,10 +120,11 @@ def main() -> int:
                    dir="inverse" if inverse else "forward", lazy=lazy,
                    split=(eng.split_for(x.numel() // eng.n, inverse)
                           if has_split else None),
+                   launches_per_call=getattr(eng, "launches_per_call", 1),
                    ms=chip_smoke.cuda_ms(fn, REPS), device_us=device_us(fn))
         if has_split:
             row["splits"] = {}
-            for s in ntt_mxu.SPLITS:
+            for s in getattr(eng, "splits", ntt_mxu.SPLITS):
                 if s <= eng.max_split(inverse):
                     def fs(s=s):
                         return launch(eng, x, limb_lo, inverse, lazy, split=s)
@@ -135,6 +140,16 @@ def main() -> int:
                       generator=gen, device="cuda") % ring.q
     bulk = {("inverse" if inv else "forward"): measure(ring._mxu, x, 0, inv, False)
             for inv in (False, True)}
+    wide = []
+    for polys, log_n, log_qp in (chip_smoke.WIDE_SHAPES
+                                 if ntt_mxu.MAX_N >= 1 << 16 else ()):
+        lit_w = bgv_tpu_params(log_n, log_qp)
+        qw, pw = gen_moduli(log_n, 2 << log_n, lit_w.log_q, lit_w.log_p)
+        ring_w = Ring(1 << log_n, qw + pw, device="cuda")
+        xw = torch.randint(0, 1 << 62, (polys, len(qw + pw), ring_w.n),
+                           generator=gen, device="cuda") % ring_w.q
+        wide += [measure(ring_w._mxu, xw, 0, inv, False) for inv in (False, True)]
+        del ring_w, xw
 
     params, a, b, serve, step_of = chip_smoke.bgv_server()
     (ca, cb, got), calls, _ = chip_smoke.record_calls(ntt_mxu, "four_step_cuda", serve)
@@ -154,8 +169,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({"tree": str(tree), "card": smi, "bulk": bulk, "path": path,
-                      "step": step, "cublas_int8_products": cublas}))
+    print(json.dumps({"tree": str(tree), "card": smi, "bulk": bulk, "wide": wide,
+                      "path": path, "step": step, "cublas_int8_products": cublas}))
     return 0
 
 

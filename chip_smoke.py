@@ -13,7 +13,10 @@ Phases (one line each; any failure exits non-zero before the result):
    the identity; time kernel and plain version with CUDA events:
    the four-step kernel (``ntt_mxu.cu``) at 4 polynomials x 15 limbs x
    16384 on the BGV chain, with the blocks per (limb, polynomial) it picks
-   there (``split``), and at logN 12 and 13 on 2 x 3 x N; the u32 kernel
+   there (``split``), at logN 12 and 13 on 2 x 3 x N, and at its two
+   launches a call of logN 15 and 16, 4 x 31 x 32768 and 2 x 62 x 65536
+   on phase 17's chains (each shape also timed, in the rows'
+   ``shapes``); the u32 kernel
    (``ntt_pallas.cu``) at the blind rotation's own shape, 2 x 1 x 1024,
    and at 4 x 15 x 16384 on 15 alternating 29-bit primes; at 2 x 1 x 1024
    also the u32 kernel's host time per call (wall clock over 1000
@@ -225,10 +228,21 @@ Phases (one line each; any failure exits non-zero before the result):
    the sign stage's bootstrap alone held at the JAX package's own
    full-degree bootstrap less a bit, with the count of its slots 4 bits
    or more under its mean; no kernel launch; peak device memory;
-17. the card's name and power limit as nvidia-smi gives them, the
-   kernels' JSON line (the launches of phases 12–16 in
+17. the BGV and CKKS steps at Lattigo's two largest ring degrees, every
+   ring on the four-step kernel's two launches a call: 17a phase 3's
+   request path at ``bgv_tpu_params(15, 880)`` (N = 32768, 29 + 2 primes
+   < 2^29, T = 65537; exact mod T), 17b phase 5's at
+   ``ckks_tpu_params(16, 1761)`` (N = 65536, 60 + 2 primes, 6 Galois
+   keys at level 58; a floor set from the JAX package's CPU result less a
+   bit). Each distinct four-step call held against the plain version as
+   it comes, in chunks of rows (nothing cloned); launches per request
+   and step, step and request ms, set-up s, peak memory; 17b's host
+   decode timed apart and its step profiled;
+18. the card's name and power limit as nvidia-smi gives them, the
+   kernels' JSON line (the launches of phases 12–17 in
    ``scale_out_launches``, ``examples_launches``, ``gate_launches``,
-   ``driver_launches`` and ``btp16_launches``), and the result line.
+   ``driver_launches``, ``btp16_launches``, ``bgv15_launches`` and
+   ``ckks16_launches``), and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
 nothing of JAX.
@@ -455,7 +469,80 @@ def phase_kernels():
               f"{r['name']} {r['ms']:.4f} ms with split {r['split']} (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']})" for r in rows))
+    del ring, eng, x, y
+    for shape in wide_kernel_shapes(gen, rows):
+        print(f"phase 2 ntt_mxu at logN {shape['log_n']} ({shape['launches_per_call']} "
+              f"launches a call, one a step): bit-equal to the plain version (lazy, "
+              f"not lazy, limb offset 5), NTT->INTT identity; at "
+              f"{'x'.join(map(str, shape['shape']))}: " + ", ".join(
+                  f"{d} {shape[d]['ms']:.4f} ms with split {shape[d]['split']} (plain "
+                  f"{shape[d]['plain_ms']:.4f} ms, bound {shape[d]['bound_ms']:.4f} ms "
+                  f"by {shape[d]['bound_by']})" for d in ("forward", "inverse")))
     return rows
+
+
+# the four-step kernel's logN 15-16 shapes (one launch a step): phase 17's
+# chains, bgv_tpu_params(15, 880) (31 primes) and ckks_tpu_params(16, 1761)
+# (62 primes), at (polynomials, log_n, log_qp)
+WIDE_SHAPES = ((BATCH, 15, 880), (2, 16, 1761))
+
+
+def wide_kernel_shapes(gen, rows) -> list[dict]:
+    """Phase 2 at the four-step kernel's logN 15-16 shapes: the kernel held
+    bit for bit against the plain version (lazy and not, and at limb offset
+    5), NTT then INTT the identity, then both timed with CUDA events beside
+    the bound. Each shape is added to the four-step rows' ``shapes``."""
+    import torch
+    from lattigo_tpu_torch.presets import bgv_tpu_params
+    from lattigo_tpu_torch.ring import ntt_mxu
+    from lattigo_tpu_torch.ring.ring import Ring
+    from lattigo_tpu_torch.rlwe.params import gen_moduli
+
+    out = []
+    for polys, log_n, log_qp in WIDE_SHAPES:
+        lit = bgv_tpu_params(log_n, log_qp)
+        q, p = gen_moduli(log_n, 2 << log_n, lit.log_q, lit.log_p)
+        ring = Ring(1 << log_n, q + p, device="cuda")
+        check(ring.ntt_engine == "mxu-cuda", f"logN={log_n} on {ring.ntt_engine}")
+        eng = ring._mxu
+        x = torch.randint(0, 1 << 62, (polys, len(q + p), ring.n), generator=gen,
+                          device="cuda") % ring.q
+        res = dict(log_n=log_n, shape=list(x.shape), launches_per_call=eng.launches_per_call)
+        for r in rows:
+            inverse = r["name"].endswith("inverse")
+            err = 0
+            for lazy in (False, True):
+                got = ntt_mxu.four_step_cuda(eng, x, 0, inverse, lazy)
+                want = ntt_mxu.four_step_plain(eng, x, 0, inverse, lazy)
+                err = max(err, int((got - want).abs().max()))
+                check(torch.equal(got, want), f"{r['name']} logN={log_n} lazy={lazy}: "
+                      "kernel != plain")
+                check(bool((got < (2 if lazy else 1) * ring.q).all()),
+                      f"{r['name']} logN={log_n} lazy={lazy}: output out of range")
+            i = 5
+            xi = x[:, i:i + 1].contiguous()
+            got = ntt_mxu.four_step_cuda(eng, xi, i, inverse, False)
+            want = ntt_mxu.four_step_plain(eng, xi, i, inverse, False)
+            full = ntt_mxu.four_step_cuda(eng, x, 0, inverse, False)[:, i:i + 1]
+            check(torch.equal(got, want) and torch.equal(got, full),
+                  f"{r['name']} logN={log_n} at limb offset {i}: kernel != plain")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            ms = cuda_ms(lambda: ntt_mxu.four_step_cuda(eng, x, 0, inverse, False), 20)
+            plain_ms = cuda_ms(lambda: ntt_mxu.four_step_plain(eng, x, 0, inverse, False), 3)
+            bound_ms, bound_by = four_step_bound(eng, tuple(x.shape))
+            res["inverse" if inverse else "forward"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                split=eng.split_for(polys * len(q + p), inverse), max_abs_err=err)
+        check(torch.equal(ring.intt(ring.ntt(x)), x),
+              f"logN={log_n}: NTT then INTT is not the identity")
+        for r in rows:
+            d = res["inverse" if r["name"].endswith("inverse") else "forward"]
+            r.setdefault("shapes", []).append(
+                dict(shape=res["shape"], launches_per_call=eng.launches_per_call, **d))
+        out.append(res)
+        del ring, eng, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def record_calls(module, name: str, fn):
@@ -502,17 +589,18 @@ def count_calls(module, name: str, fn):
     return out, n[0]
 
 
-def bgv_server():
-    """Phase 3's server on the card: parameters, keys, the inputs a and b
-    (BATCH requests), serve() (encrypt both, rescale(mul_relin), decrypt,
-    decode; returns ca, cb and the decoded slots) and step(ca, cb)."""
+def bgv_server(log_n: int = LOG_N, log_qp: int = LOG_QP):
+    """Phase 3's server on the card (17a's at another size): parameters
+    ``bgv_tpu_params(log_n, log_qp)``, keys, the inputs a and b (BATCH
+    requests), serve() (encrypt both, rescale(mul_relin), decrypt, decode;
+    returns ca, cb and the decoded slots) and step(ca, cb)."""
     import numpy as np
     import torch
     from lattigo_tpu_torch import rlwe
     from lattigo_tpu_torch.presets import bgv_tpu_params
     from lattigo_tpu_torch.schemes import bgv
 
-    params = bgv.Parameters(bgv_tpu_params(LOG_N, LOG_QP))   # on cuda
+    params = bgv.Parameters(bgv_tpu_params(log_n, log_qp))   # on cuda
     check(params.ring_q.device.type == "cuda", "parameters not on the card")
     for name, ring in (("Q", params.ring_q), ("P", params.ring_p), ("T", params.ring_t)):
         check(ring.ntt_engine == "mxu-cuda", f"ring {name} on {ring.ntt_engine}")
@@ -664,12 +752,14 @@ def profile_step(step, kernel: str = "ntt_mxu_kernel",
                 f"{k[:50]} {v:.0f} us" for k, (v, _) in top)), family
 
 
-def ckks_server():
-    """Phase 5's server on the card: parameters, keys (Galois keys scoped to
-    the transformation's level), the inputs a and b (BATCH requests), the
+def ckks_server(log_n: int = LOG_N, log_qp: int = LOG_QP):
+    """Phase 5's server on the card (17b's at another size): parameters
+    ``ckks_tpu_params(log_n, log_qp)``, keys (Galois keys scoped to the
+    transformation's level), the inputs a and b (BATCH requests), the
     encoded transformation, serve() (encrypt both, the step, decrypt,
     decode; returns ca, cb and the decoded slots), step(ca, cb), the numpy
-    answer M·(a∘b) and what the set-up measured."""
+    answer M·(a∘b) and what the set-up measured (its seconds, and the
+    parameters' alone: their rings' tables)."""
     import numpy as np
     import torch
     from lattigo_tpu_torch import rlwe
@@ -679,7 +769,9 @@ def ckks_server():
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    params = ckks.Parameters(ckks_tpu_params(LOG_N, LOG_QP))   # on cuda
+    params = ckks.Parameters(ckks_tpu_params(log_n, log_qp))   # on cuda
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
     check(params.ring_q.device.type == "cuda", "parameters not on the card")
     for name, ring in (("Q", params.ring_q), ("P", params.ring_p)):
         check(ring.ntt_engine == "mxu-cuda", f"ring {name} on {ring.ntt_engine}")
@@ -704,7 +796,8 @@ def ckks_server():
     rlk = kg.gen_relinearization_key(gen, sk)
     gks = kg.gen_galois_keys(gen, els, sk, levels={g: level for g in els})
     torch.cuda.synchronize()
-    info = dict(setup_s=time.perf_counter() - t0, n1=lt.n1, galois_keys=len(gks),
+    info = dict(setup_s=time.perf_counter() - t0, params_s=params_s, n1=lt.n1,
+                galois_keys=len(gks),
                 key_level=level, keys_peak_mb=torch.cuda.max_memory_allocated() / 2**20)
     ev = ckks.Evaluator(params, rlwe.EvaluationKeySet(rlk, gks))
     lte = lintrans.LinTransEvaluator(ev)
@@ -718,11 +811,15 @@ def ckks_server():
     def step(ca, cb):
         return ev.rescale(lte.evaluate(ev.rescale(ev.mul_relin(ca, cb)), lt))
 
+    def encrypt():
+        return (encryptor.encrypt(gen, encoder.encode(a), batch=(BATCH,)),
+                encryptor.encrypt(gen, encoder.encode(b), batch=(BATCH,)))
+
     def serve():
-        ca = encryptor.encrypt(gen, encoder.encode(a), batch=(BATCH,))
-        cb = encryptor.encrypt(gen, encoder.encode(b), batch=(BATCH,))
+        ca, cb = encrypt()
         return ca, cb, encoder.decode(decryptor.decrypt(step(ca, cb)))
 
+    info.update(encrypt=encrypt, decrypt=decryptor.decrypt, decode=encoder.decode)
     return params, want, serve, step, info
 
 
@@ -3274,6 +3371,242 @@ def phase_circuits_btp(rows, log_n: int | None = None):
           f"({setup_mb:.1f} over the set-up; {held_mb:.1f} held by earlier phases at "
           f"the start); the phase {time.perf_counter() - t_phase:.1f} s")
 
+# -- phase 17: the BGV and CKKS steps at Lattigo's two largest ring degrees ----
+
+# 17a: bgv_tpu_params(15, 880), the TPU-native form of BGV_PARAMS_N15_QP880;
+# 17b: ckks_tpu_params(16, 1761), that of CKKS_COMPLEX_PARAMS_N16_QP1761
+WIDE_BGV = (15, 880)
+WIDE_CKKS = (16, 1761)
+# 17b first runs the same step on the JAX package's own chain at logN 16,
+# ckks_tpu_params(16, 224) (6 + 2 of these 28-bit primes; the JAX package
+# is not run on the 60 + 2 chain: its keys alone take 14 GB of host
+# memory), held at the JAX package's get_precision_stats on the same step,
+# inputs and seed (1234) on the CPU less one bit (JAX_PLATFORMS=cpu
+# PYTHONPATH=. python tests/test_torch_lintrans.py 16 224: min 11.35, avg
+# 14.10 bits, in 12 min). The full chain's floor is that less the key
+# switches' noise growth: the rotations run at scale 2^28, where their
+# noise (its std grows as the square root of the gadget rows, 3 there
+# and 30 here) is the step's largest term, log2(sqrt(30 / 3)) = 1.66 bits.
+CKKS16_CUT = (16, 224)
+CKKS16_CUT_MIN_BITS = (10.35, 13.10)
+CKKS16_MIN_BITS = (8.69, 11.44)
+# the plain version's float64 digit planes of one chunk of a held call:
+# at most this many (limb, polynomial) rows at a time
+HOLD_ROWS = 512
+
+
+def held_calls(fn):
+    """Run fn() with ``ntt_mxu.four_step_cuda`` holding the output of the
+    first of every distinct call (engine, shape, limb offset, direction,
+    lazy) against the plain version as it comes, chunk by chunk of at most
+    ``HOLD_ROWS`` rows, with nothing cloned (at logN 16 one input can hold
+    4 GB); the launch counts zeroed before and read after. Returns fn's
+    result, {key: (max |err|, split)} and the counts."""
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu
+
+    launch = ntt_mxu.four_step_cuda
+    held = {}
+
+    def holding(eng, x, limb_lo, inverse, lazy):
+        out = launch(eng, x, limb_lo, inverse, lazy)
+        key = (id(eng), tuple(x.shape), limb_lo, inverse, lazy)
+        if key not in held and x.numel():
+            l = x.shape[-2]
+            xs, outs = x.reshape(-1, l, eng.n), out.reshape(-1, l, eng.n)
+            step = max(1, HOLD_ROWS // l)
+            err = 0
+            for i in range(0, xs.shape[0], step):
+                want = ntt_mxu.four_step_plain(eng, xs[i:i + step], limb_lo, inverse, lazy)
+                err = max(err, int((outs[i:i + step] - want).abs().max()))
+                del want
+            held[key] = (err, eng.split_for(xs.shape[0] * l, inverse))
+        return out
+
+    ntt_mxu.four_step_cuda = holding
+    try:
+        ntt_mxu.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = dict(ntt_mxu.LAUNCHES)
+    finally:
+        ntt_mxu.four_step_cuda = launch
+    return res, held, launches
+
+
+def hold_rows(rows, held: dict, launches: dict, tag: str, where: str) -> str:
+    """Fail unless every held call was bit-equal and both directions
+    launched; record the launches as ``<tag>_launches`` in the four-step
+    rows; returns the held calls' shapes, as phase 3 prints them."""
+    for (_, shape, lo, inv, lazy), (err, _) in held.items():
+        check(err == 0, f"kernel != plain at {where} call {shape} limb_lo={lo} "
+              f"inverse={inv} lazy={lazy} (max |err| {err})")
+    for r in rows:
+        if r["name"].startswith("ntt_mxu"):
+            d = "inverse" if r["name"].endswith("inverse") else "forward"
+            r[f"{tag}_launches"] = launches[d]
+            check(launches[d] > 0, f"{r['name']} not launched on {where}")
+    return str(sorted({(shape, lo, "inv" if inv else "fwd", f"split {split}")
+                       for (_, shape, lo, inv, _), (_, split) in held.items()}))
+
+
+def time_step(step, reps: int = 10) -> float:
+    """Host ms of step() over ``reps`` runs after 3 warm-up runs, each run
+    ended by a synchronize."""
+    import torch
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_wide_bgv(rows):
+    """17a: phase 3's request path at ``bgv_tpu_params(*WIDE_BGV)``."""
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    params, a, b, serve, step_of = bgv_server(*WIDE_BGV)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    keys_mb = torch.cuda.max_memory_allocated() / 2**20
+    (ca, cb, got), held, launches = held_calls(serve)
+    check(np.array_equal(got, a * b % params.t), "17a: decoded slots != a*b mod t")
+    shapes = hold_rows(rows, held, launches, "bgv15", "17a's request")
+
+    def step():
+        return step_of(ca, cb)
+
+    ntt_mxu.reset_launches()
+    out = step()
+    torch.cuda.synchronize()
+    step_launches = dict(ntt_mxu.LAUNCHES)
+    check(out.level == params.max_level - 1, "17a: rescale did not drop a level")
+    step_ms = time_step(step)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    serve()
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t1) * 1e3
+    request_mb = torch.cuda.max_memory_allocated() / 2**20
+    print(f"phase 17a BGV bgv_tpu_params{WIDE_BGV}: logN={params.log_n} "
+          f"Q={len(params.q_moduli)}x28-bit P={len(params.p_moduli)}x28-bit "
+          f"T={params.t}, {BATCH} requests of {params.n} slots decode to a*b mod T in "
+          f"every slot; rings Q, P, T on mxu-cuda; kernel bit-equal to plain at the "
+          f"request's {len(held)} distinct calls {shapes}; launches on the request "
+          f"{launches}, per step {step_launches}; set-up {setup_s:.2f} s; step "
+          f"(mul_relin+rescale) {step_ms:.3f} ms per batch of {BATCH}; whole request "
+          f"path {serve_ms:.3f} ms; peak device memory {keys_mb:.1f} MiB after keys, "
+          f"{request_mb:.1f} MiB over a request, {peak_mb:.1f} MiB over the phase "
+          f"before it (the held calls' plain versions included; {held_mb:.1f} held "
+          f"by earlier phases at the start)")
+    for r in rows:
+        if r["name"].startswith("ntt_mxu"):
+            r["bgv15_launches_per_step"] = step_launches[
+                "inverse" if r["name"].endswith("inverse") else "forward"]
+
+
+def phase_wide_ckks(rows):
+    """17b: phase 5's request path at ``ckks_tpu_params(*WIDE_CKKS)``."""
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.ring import ntt_mxu
+    from lattigo_tpu_torch.schemes.ckks import get_precision_stats
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    # the JAX package's chain at logN 16, against its own result
+    cut, cut_want, cut_serve, _, _ = ckks_server(*CKKS16_CUT)
+    cut_stats = get_precision_stats(cut_want, cut_serve()[2])
+    check(cut_stats.min_precision >= CKKS16_CUT_MIN_BITS[0]
+          and cut_stats.avg_precision >= CKKS16_CUT_MIN_BITS[1],
+          f"17b: CKKS precision {cut_stats} on ckks_tpu_params{CKKS16_CUT} below the "
+          f"floor min {CKKS16_CUT_MIN_BITS[0]} / avg {CKKS16_CUT_MIN_BITS[1]} bits")
+    cut_engines = {cut.ring_q.ntt_engine, cut.ring_p.ntt_engine}
+    del cut, cut_want, cut_serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, want, _, step_of, info = ckks_server(*WIDE_CKKS)
+
+    def request():
+        """The request on the card: encode + encrypt, the step, decrypt;
+        the host decode (CRT of 58 limbs) is timed apart."""
+        ca, cb = info["encrypt"]()
+        return ca, cb, info["decrypt"](step_of(ca, cb))
+
+    (ca, cb, pt), held, launches = held_calls(request)
+    t2 = time.perf_counter()
+    got = info["decode"](pt)
+    decode_ms = (time.perf_counter() - t2) * 1e3
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"17b: decoded slots of shape {got.shape}, not all finite")
+    stats = get_precision_stats(want, got)
+    check(stats.min_precision >= CKKS16_MIN_BITS[0]
+          and stats.avg_precision >= CKKS16_MIN_BITS[1],
+          f"17b: CKKS precision {stats} below the floor min {CKKS16_MIN_BITS[0]} / "
+          f"avg {CKKS16_MIN_BITS[1]} bits")
+    shapes = hold_rows(rows, held, launches, "ckks16", "17b's request")
+
+    def step():
+        return step_of(ca, cb)
+
+    ntt_mxu.reset_launches()
+    out = step()
+    torch.cuda.synchronize()
+    step_launches = dict(ntt_mxu.LAUNCHES)
+    check(out.level == params.max_level - 2, "17b: the step did not end two levels down")
+    step_ms = time_step(step)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    request()
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t1) * 1e3
+    request_mb = torch.cuda.max_memory_allocated() / 2**20
+    print(f"phase 17b CKKS on the JAX package's chain ckks_tpu_params{CKKS16_CUT}: "
+          f"rings on {sorted(cut_engines)}, the same step decodes at {cut_stats} (floor "
+          f"min {CKKS16_CUT_MIN_BITS[0]} / avg {CKKS16_CUT_MIN_BITS[1]})")
+    print(f"phase 17b CKKS ckks_tpu_params{WIDE_CKKS}: logN={params.log_n} "
+          f"Q={len(params.q_moduli)}x28-bit P={len(params.p_moduli)}x28-bit scale "
+          f"2^{params.log_default_scale}; rings Q, P on mxu-cuda; set-up "
+          f"{info['setup_s']:.2f} s (parameters and their tables {info['params_s']:.2f} s) "
+          f"with {info['galois_keys']} Galois keys at level {info['key_level']} (n1 "
+          f"{info['n1']}, {CKKS_DIAGS} diagonals), peak memory after keys "
+          f"{info['keys_peak_mb']:.1f} MiB; {BATCH} requests of {params.max_slots} slots, "
+          f"rescale(evaluate(rescale(mul_relin(a, b)))) decodes to M(a*b) at {stats} "
+          f"(floor min {CKKS16_MIN_BITS[0]} / avg {CKKS16_MIN_BITS[1]}); kernel "
+          f"bit-equal to plain at the request's {len(held)} distinct calls {shapes}; "
+          f"launches on the request {launches}, per step {step_launches}; step "
+          f"{step_ms:.3f} ms per batch of {BATCH}; request path to the decrypted "
+          f"plaintext {serve_ms:.3f} ms, then the host decode (CRT of {pt.level + 1} "
+          f"limbs, FFT) {decode_ms:.1f} ms; peak device memory {request_mb:.1f} MiB "
+          f"over a request, {peak_mb:.1f} MiB over the phase before it (the held "
+          f"calls' plain versions included; {held_mb:.1f} held by earlier phases at "
+          f"the start)")
+    text, family = profile_step(step, host=False)
+    print("phase 17b profile: " + text)
+    for r in rows:
+        if r["name"].startswith("ntt_mxu"):
+            inverse = r["name"].endswith("inverse")
+            r["ckks16_launches_per_step"] = step_launches["inverse" if inverse else "forward"]
+            flag = "true>" if inverse else "false>"
+            us = sum(v for k, (v, _) in family.items() if flag in k)
+            n = sum(c for k, (_, c) in family.items() if flag in k)
+            check(n > 0, f"{r['name']} absent from 17b's step profile")
+            r["ckks16_device_us_per_launch"] = us / n
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3305,6 +3638,8 @@ def main() -> int:
     phase_gate(rows)
     phase_bootstrap_driver(rows)
     phase_circuits_btp(rows)
+    phase_wide_bgv(rows)
+    phase_wide_ckks(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -281,6 +281,7 @@ class LinTransEvaluator:
 
         digits = self.ev.decompose_ntt(ct.value[..., 1, :, :], level)
         pre = self._pre_rotate(ct, digits, babies, level)
+        del digits
 
         qmax = max(max(p.q_moduli[:l]), max(p.p_moduli))
         margin = max(2, modops.margin_for(qmax))
@@ -343,11 +344,11 @@ class LinTransEvaluator:
             ext = (1,) * (dg.q.dim() + 1 - evq.dim())   # ct batch axes
             evq = evq.reshape(evq.shape[:1] + ext + evq.shape[1:])
             evp = evp.reshape(evp.shape[:1] + ext + evp.shape[1:])
-            dq = modops.mred_lazy(dg.q[..., :, None, :, :], evq, qq, qq_inv, rq.small)
-            dp = modops.mred_lazy(dg.p[..., :, None, :, :], evp, rp.q, rp.qinv,
-                                  rp.small)
-            accq = sum_q(torch.movedim(dq, -4, 0))          # [G, ..., 2, l, N]
-            accp = sum_p(torch.movedim(dp, -4, 0))
+            accq = modops.mred_sum(dg.q[..., :, None, :, :], evq, qq, qq_inv,
+                                   qq_bhi, margin, rq.small)  # [G, ..., 2, l, N]
+            accp = modops.mred_sum(dg.p[..., :, None, :, :], evp, rp.q, rp.qinv,
+                                   rp.bred_hi, margin, rp.small)
+            del dg
             d0q = rq.add(accq[..., 0, :, :], T0q, level)
             d0p = rp.add(accp[..., 0, :, :], T0p)
             d1q, d1p = accq[..., 1, :, :], accp[..., 1, :, :]

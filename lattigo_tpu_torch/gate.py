@@ -110,13 +110,15 @@ def gate_kat(device) -> dict:
 
 def engine_chains(full: bool = False) -> list[tuple[str, int, list[int]]]:
     """(engine the ring must take, logN, primes below 2^b): the four-step
-    kernel at logN 13-14 on 28-bit primes; the u32 kernel at logN 10 on
-    30-bit primes and at logN 15 on 28-bit ones (where the four-step kernel
-    stops); the u64 four-step engine on 50-bit primes at logN 13 and 16 and
-    a mixed 25 / 50 / 61-bit chain at logN 15 (``--full``: 60-bit at logN 14
-    and 16 too). ``tpu_gate.py`` runs its engines on these prime classes."""
+    kernel at logN 13-16 on 28-bit primes (its fused launch at 13-14, its
+    two launches a call at 15-16); the u32 kernel at logN 10 and 15 on
+    30-bit primes; the u64 four-step engine on 50-bit primes at logN 13 and
+    16 and a mixed 25 / 50 / 61-bit chain at logN 15 (``--full``: 60-bit at
+    logN 14 and 16 too). ``tpu_gate.py`` runs its engines on these prime
+    classes."""
     chains = [("mxu", 13, [28, 28]), ("mxu", 14, [28, 28]),
-              ("u32", 10, [30, 30]), ("u32", 15, [28, 28]),
+              ("mxu", 15, [28, 28]), ("mxu", 16, [28, 28]),
+              ("u32", 10, [30, 30]), ("u32", 15, [30, 30]),
               ("mxu64", 13, [50, 50]), ("mxu64", 16, [50, 50]),
               ("mxu64", 15, [25, 50, 61])]
     if full:

@@ -6,7 +6,7 @@ budgets of the homomorphic-encryption.org tables for ternary secrets at
 128-bit security; primes drawn NTT-friendly at construction).
 ``bgv_tpu_params`` and ``ckks_tpu_params`` build a budget of a given logQP
 from 28-bit primes (< 2^29), so every NTT of rings Q, P (and T) at
-4096 ≤ N ≤ 16384 takes the four-step digit-matmul engine.
+4096 ≤ N ≤ 65536 takes the four-step digit-matmul engine.
 """
 
 from __future__ import annotations

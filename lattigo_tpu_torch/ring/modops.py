@@ -24,10 +24,14 @@ q, lazy outputs live in [0, 2q).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 M32 = 0xFFFFFFFF
 SIGN = -(1 << 63)
+#: Bytes of int64 products :func:`mred_sum` forms at once.
+MAC_CHUNK_BYTES = 1 << 30
 SMALL_Q_BITS = 30
 
 
@@ -212,6 +216,27 @@ def mul_mont_lazy(a, b, q, qinv, small: bool | None = None):
 
 def mul_scalar_mont(a, s_mform, q, qinv, small: bool | None = None):
     return mred(a, s_mform, q, qinv, small)
+
+
+def mred_sum(a, b, q, qinv, bred_hi, margin: int, small: bool | None = None):
+    """Σ over axis -4 of the broadcast ``mred_lazy(a, b)``, in [0, q) (a
+    gadget MAC: a digits [..., beta, 1, l, N], b key rows [..., beta, 2,
+    l, N]). The axis goes in chunks whose product stays under
+    :data:`MAC_CHUNK_BYTES`, each reduced to [0, q) and the chunks added
+    mod q: the same values as one product over the whole axis (which is
+    what a call under the limit runs), with a working set that stays
+    bounded at large N and many digits."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    k = shape[-4]
+    step = max(1, MAC_CHUNK_BYTES * k // (8 * math.prod(shape)))
+    acc = None
+    for i in range(0, k, step):
+        t = mred_lazy(a[..., i:i + step, :, :, :], b[..., i:i + step, :, :, :],
+                      q, qinv, small)
+        s = bred_add(lazy_tree_sum(torch.movedim(t, -4, 0), q, bred_hi, margin),
+                     q, bred_hi)
+        acc = s if acc is None else add_mod(acc, s, q)
+    return acc
 
 
 def lazy_tree_sum(t, q, bred_hi, margin: int):

@@ -22,13 +22,15 @@ Two implementations of the same function live here:
 * the CUDA kernel ``csrc/ntt_mxu.cu``, launched by :func:`four_step_cuda`.
   Its products run on int8 tensor cores; it reads the weight digits in
   the order of its ``mma`` A fragments (:func:`mma_fragment_order`), and
-  splits each (limb, polynomial) over S ∈ {1, 2, 4, 8} blocks that never
-  exchange data (:meth:`NTTMxu.split_for`).
+  splits each (limb, polynomial) over S blocks that never exchange data
+  (:meth:`NTTMxu.split_for`). Up to N = 2^14 (:data:`FUSED_MAX_N`) a call
+  is one launch; at N = 2^15 and 2^16 it is two, one a step, step 1's
+  digits passing through an int8 scratch tensor of 4N bytes a row.
 
 :class:`NTTMxu` sends a CPU tensor to the plain version and a CUDA tensor
 to the kernel; there is no fallback between them. Requires q < 2^29 and
-4096 ≤ N ≤ 16384 (the kernel's shared-memory layout). Lazy outputs are in
-[0, 2q), otherwise [0, q).
+4096 ≤ N ≤ 65536 (the kernel's templates). Lazy outputs are in [0, 2q),
+otherwise [0, q).
 """
 
 from __future__ import annotations
@@ -46,18 +48,22 @@ from lattigo_tpu_torch.ring.ntt_pallas import mred_lazy32 as _mred_lazy32
 
 MAX_Q_BITS = 29
 MIN_N = 4096
-MAX_N = 1 << 14
+MAX_N = 1 << 16
+#: Largest N whose call is one fused launch; above it, one launch a step.
+FUSED_MAX_N = 1 << 14
 M8 = 0xFF
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
-#: Splits of one (limb, polynomial) over blocks that the kernel has.
+#: Splits of one (limb, polynomial) over blocks that the kernel has: all
+#: of them up to FUSED_MAX_N, from 2 on above it.
 SPLITS = (1, 2, 4, 8)
+STEP_SPLITS = (2, 4, 8)
 #: Shared memory an H100 SM gives its blocks, and what it keeps per block.
 SMEM_PER_SM = 228 * 1024
 SMEM_RESERVED_PER_BLOCK = 1024
 
-#: Launch counts of the CUDA kernel, by direction. Each launch adds one;
-#: the plain version adds nothing.
+#: Launch counts of the CUDA kernel, by direction. Each launch adds one (a
+#: call at N > FUSED_MAX_N launches twice); the plain version adds nothing.
 LAUNCHES = {"forward": 0, "inverse": 0}
 
 
@@ -128,7 +134,9 @@ def gen_four_step_weights(n: int, rr: int, cc: int, psi: int, q: int):
       WBI[t2, j2] = w^{-R j2 brev(t2)}
       TI[t1, j2]  = w^{-j2 brev(t1)} * psi^{-j2}
       WAI[j1, t1] = w^{-C j1 brev(t1)} psi^{-C j1}/N
-    """
+
+    A product of two residues is taken in uint64 where q < 2^32 (it stays
+    below 2^64), in Python integers otherwise (the u64 engine's primes)."""
     logr = rr.bit_length() - 1
     logc = cc.bit_length() - 1
     w = psi * psi % q
@@ -136,17 +144,21 @@ def gen_four_step_weights(n: int, rr: int, cc: int, psi: int, q: int):
     psii = pow(psi, -1, q)
     ninv = pow(n, -1, q)
 
+    def mul(a, b):
+        if q < (1 << 32):
+            return a * b % np.uint64(q)
+        prod = np.asarray(a).astype(object) * np.asarray(b).astype(object)
+        return (prod % q).astype(np.uint64)
+
     brev_r = np.array([bit_reverse(t, logr) for t in range(rr)])
     brev_c = np.array([bit_reverse(t, logc) for t in range(cc)])
 
     u = _pow_table(pow(w, cc, q), rr, q)
     psic = _pow_table(pow(psi, cc, q), rr, q)
-    wa = (u[np.outer(brev_r, np.arange(rr)) % rr].astype(object)
-          * psic[None, :].astype(object)) % q
+    wa = mul(u[np.outer(brev_r, np.arange(rr)) % rr], psic[None, :])
     wp = _pow_table(w, n, q)
     psip = _pow_table(psi, cc, q)
-    tf = (wp[np.outer(brev_r, np.arange(cc)) % n].astype(object)
-          * psip[None, :cc].astype(object)) % q
+    tf = mul(wp[np.outer(brev_r, np.arange(cc)) % n], psip[None, :cc])
     v = _pow_table(pow(w, rr, q), cc, q)
     wb = v[np.outer(np.arange(cc), brev_c) % cc]
 
@@ -154,26 +166,22 @@ def gen_four_step_weights(n: int, rr: int, cc: int, psi: int, q: int):
     wbi = ui[np.outer(brev_c, np.arange(cc)) % cc]
     wpi = _pow_table(wi, n, q)
     psiip = _pow_table(psii, cc, q)
-    ti = (wpi[np.outer(brev_r, np.arange(cc)) % n].astype(object)
-          * psiip[None, :cc].astype(object)) % q
+    ti = mul(wpi[np.outer(brev_r, np.arange(cc)) % n], psiip[None, :cc])
     uii = _pow_table(pow(wi, cc, q), rr, q)
     psici = _pow_table(pow(psii, cc, q), rr, q)
-    wai = uii[np.outer(np.arange(rr), brev_r) % rr].astype(object) \
-        * psici[:, None].astype(object) % q
-    wai = wai * ninv % q
-
-    def as_u64(a):
-        return np.asarray(a, dtype=object).astype(np.uint64)
-
-    return dict(wa=as_u64(wa), tf=as_u64(tf), wb=as_u64(wb),
-                wbi=as_u64(wbi), ti=as_u64(ti), wai=as_u64(wai))
+    wai = mul(mul(uii[np.outer(np.arange(rr), brev_r) % rr], psici[:, None]),
+              np.uint64(ninv))
+    return dict(wa=wa, tf=tf, wb=wb, wbi=wbi, ti=ti, wai=wai)
 
 
 def gen_mxu_tables(n: int, rr: int, cc: int, psi: int, q: int):
     """Per-prime constant pack: int8 digit extensions of the raw weights
     (same layouts as the TPU kernel's) + Montgomery-form (2^32) twiddles."""
     raw = gen_four_step_weights(n, rr, cc, psi, q)
-    mont = np.vectorize(lambda x: _mform32(int(x), q), otypes=[np.uint32])
+
+    def mont(a):                       # a * 2^32 mod q, exact: a < 2^29
+        return ((a << np.uint64(32)) % np.uint64(q)).astype(np.uint32)
+
     return dict(
         w1f=_extend_weight(raw["wa"], q, contract_first=True),     # [4R, 4R]
         tf=mont(raw["tf"]),                                        # [R, C]
@@ -211,10 +219,14 @@ def mma_fragment_order(w: np.ndarray) -> np.ndarray:
 
 
 def kernel_smem(rr: int, cc: int, split: int, inverse: bool) -> int:
-    """Shared-memory bytes of one block of ``csrc/ntt_mxu.cu`` (its
-    ``Layout``): the input's digit planes and 1/split of step 1's, rows
-    padded to 16 mod 128 bytes."""
+    """Shared-memory bytes of one block of ``csrc/ntt_mxu.cu``, rows padded
+    to 16 mod 128 bytes. Up to :data:`FUSED_MAX_N` (its ``Layout``): the
+    input's digit planes and 1/split of step 1's. Above (``StepLayout``,
+    the larger of the two steps, the same in both directions): 1/split of
+    a step's B columns, each with its 4R or 4C digit bytes."""
     ldr, ldc = 4 * rr + 16, 4 * cc + 16
+    if rr * cc > FUSED_MAX_N:
+        return max(cc // split * ldr, rr // split * ldc)
     if inverse:
         return rr * ldc + cc // split * ldr
     return cc * ldr + rr // split * ldc
@@ -312,7 +324,7 @@ class _Binding:
 
     def __init__(self, eng: "NTTMxu"):
         fn = build.load("ntt_mxu").ntt_mxu_launch
-        fn.argtypes = [_ptr] * 3 + [_int] * 5 + [_ptr]
+        fn.argtypes = [_ptr] * 4 + [_int] * 5 + [_ptr]
         fn.restype = _int
         self.fn = fn
         self.device = eng.device.index
@@ -345,18 +357,22 @@ def four_step_cuda(eng: "NTTMxu", x, limb_lo: int, inverse: bool,
     rows = x.numel() // eng.n
     if split is None:
         split = eng.split_for(rows, inverse)
-    elif split not in SPLITS or split > eng.max_split(inverse):
-        raise ValueError(f"split {split} not in {SPLITS} up to "
+    elif split not in eng.splits or split > eng.max_split(inverse):
+        raise ValueError(f"split {split} not in {eng.splits} up to "
                          f"{eng.max_split(inverse)}")
     out = torch.empty_like(x)
     if rows == 0:
         return out
+    # step 1's digits, 4N bytes a row, when the call runs as two launches
+    mid = (torch.empty(rows, 4 * eng.n, dtype=torch.int8, device=x.device)
+           if eng.launches_per_call == 2 else None)
     k = eng._binding
-    err = k.fn(x.data_ptr(), out.data_ptr(), k.ptr, inverse | lazy << 1, rows,
-               l, limb_lo, split, torch.cuda.current_stream(k.device).cuda_stream)
+    err = k.fn(x.data_ptr(), None if mid is None else mid.data_ptr(),
+               out.data_ptr(), k.ptr, inverse | lazy << 1, rows, l, limb_lo,
+               split, torch.cuda.current_stream(k.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntt_mxu kernel launch failed: CUDA error {err}")
-    LAUNCHES["inverse" if inverse else "forward"] += 1
+    LAUNCHES["inverse" if inverse else "forward"] += eng.launches_per_call
     return out
 
 
@@ -395,6 +411,10 @@ class NTTMxu:
         self.logn = n.bit_length() - 1
         self.cc = max(128, 1 << (self.logn // 2))
         self.rr = n // self.cc
+        #: kernel launches a call (one a step above FUSED_MAX_N) and the
+        #: splits the kernel has for this N
+        self.launches_per_call = 1 if n <= FUSED_MAX_N else 2
+        self.splits = SPLITS if n <= FUSED_MAX_N else STEP_SPLITS
         packs = [gen_mxu_tables(n, self.rr, self.cc, psi, q)
                  for psi, q in zip(psis, moduli)]
 
@@ -421,17 +441,19 @@ class NTTMxu:
 
     def max_split(self, inverse: bool) -> int:
         """Most blocks per (limb, polynomial): each needs a 16-row slab of
-        the split dimension (t1 of R forward, j2 of C inverse)."""
-        return min(SPLITS[-1], (self.cc if inverse else self.rr) // 16)
+        the split dimension (t1 of R forward, j2 of C inverse; above
+        FUSED_MAX_N, every step's slab is 16 columns or more at 8)."""
+        return min(self.splits[-1], (self.cc if inverse else self.rr) // 16)
 
     def min_split(self, inverse: bool) -> int:
         """Least blocks per (limb, polynomial) at which two blocks share an
-        SM (one block of the unsplit logN = 14 layout fills it alone)."""
-        for s in SPLITS:
+        SM (one block of the unsplit layout fills it alone at logN 14 and
+        15, and at logN 16 so does one of split 2)."""
+        for s in self.splits:
             if 2 * (kernel_smem(self.rr, self.cc, s, inverse)
                     + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM:
                 return s
-        return SPLITS[-1]
+        return self.splits[-1]
 
     @functools.cached_property
     def _binding(self) -> _Binding:

@@ -9,7 +9,7 @@ limb-major) built on the ring's ``device``; a polynomial is a tensor
 NTT engine, chosen in this order (:func:`select_engine`, the rule of the
 JAX package's ``Ring._build_pallas``):
 
-* ``mxu``: a STANDARD ring with 4096 ≤ N ≤ 16384 and every q < 2^29 uses
+* ``mxu``: a STANDARD ring with 4096 ≤ N ≤ 65536 and every q < 2^29 uses
   the four-step digit-matmul engine (:mod:`.ntt_mxu`);
 * ``u32``: a STANDARD ring with 512 ≤ N ≤ 2^15 and every q < 2^30 that
   the four-step engine did not take uses the fused u32 engine
@@ -26,11 +26,7 @@ package; ``ring.ntt_engine`` names it "ci-plain".
 
 Each kernel engine runs its CUDA kernel on the card and its plain version
 on the CPU; ``ring.ntt_engine`` names the choice. A kernel that fails to
-build or launch raises. The JAX package on a TPU sends a 28-bit chain at
-logN = 15 and 16 to its four-step kernel; the port's four-step kernel
-stops at logN = 14, so that chain takes the u32 engine at logN = 15 and
-the u64 four-step engine at logN = 16 here (non-lazy outputs are
-canonical either way).
+build or launch raises; nothing falls back to another engine.
 """
 
 from __future__ import annotations

@@ -55,16 +55,11 @@ class Evaluator:
             raise ValueError(f"evaluation key generated at level "
                              f"{evq.shape[-2] - 1} used at level {level_q}")
         margin = modops.margin_for(max(max(p.q_moduli[:lq]), max(p.p_moduli)))
-        tq = modops.mred_lazy(digits.q[..., :, None, :, :], evq[:beta, :, :lq, :],
-                              rq.q[:lq], rq.qinv[:lq], rq.small)
-        tp = modops.mred_lazy(digits.p[..., :, None, :, :], evp[:beta],
-                              rp.q, rp.qinv, rp.small)
-        acc_q = modops.lazy_tree_sum(torch.movedim(tq, -4, 0), rq.q[:lq],
-                                     rq.bred_hi[:lq], margin)
-        acc_p = modops.lazy_tree_sum(torch.movedim(tp, -4, 0), rp.q,
-                                     rp.bred_hi, margin)
-        return QPPoly(modops.bred_add(acc_q, rq.q[:lq], rq.bred_hi[:lq]),
-                      modops.bred_add(acc_p, rp.q, rp.bred_hi))
+        return QPPoly(
+            modops.mred_sum(digits.q[..., :, None, :, :], evq[:beta, :, :lq, :],
+                            rq.q[:lq], rq.qinv[:lq], rq.bred_hi[:lq], margin, rq.small),
+            modops.mred_sum(digits.p[..., :, None, :, :], evp[:beta], rp.q,
+                            rp.qinv, rp.bred_hi, margin, rp.small))
 
     def gadget_product_hoisted(self, digits: QPPoly, gadget: GadgetCiphertext,
                                level_q: int):

@@ -63,8 +63,14 @@ def test_engines_against_radix2():
 
 
 def test_gate_chains_take_their_engines():
-    """The card's chains select the engine each is there for (metadata)."""
+    """The card's chains select the engine each is there for (metadata):
+    the four-step kernel at logN 13-16 on 28-bit primes, the u32 kernel
+    at logN 15 on 30-bit ones."""
     from lattigo_tpu_torch.ring.ring import select_engine
+    chains = gate.engine_chains()
+    assert {(e, n) for e, n, b in chains if b == [28, 28]} == {
+        ("mxu", 13), ("mxu", 14), ("mxu", 15), ("mxu", 16)}
+    assert ("u32", 15, [30, 30]) in chains
     for full in (False, True):
         for engine, log_n, bits in gate.engine_chains(full):
             primes = gate._chain_primes(log_n, bits)

@@ -35,6 +35,15 @@ def _ring(logn, cuda):
     return Ring(1 << logn, q + p, device=cuda)
 
 
+_RINGS = {}
+
+
+def _cached_ring(logn, cuda):
+    if logn not in _RINGS:
+        _RINGS[logn] = _ring(logn, cuda)
+    return _RINGS[logn]
+
+
 def _residues(ring, batch, seed):
     g = torch.Generator(device=ring.device).manual_seed(seed)
     x = torch.randint(0, 1 << 62, batch + (len(ring.moduli), ring.n),
@@ -42,24 +51,26 @@ def _residues(ring, batch, seed):
     return x % ring.q
 
 
-@pytest.mark.parametrize("logn", [12, 13, 14])
+@pytest.mark.parametrize("logn", [12, 13, 14, 15, 16])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("lazy", [False, True])
 def test_four_step_kernel_matches_plain(cuda, logn, inverse, lazy):
-    ring = _ring(logn, cuda)
+    """One launch a call up to logN 14, two (one a step) at logN 15-16."""
+    ring = _cached_ring(logn, cuda)
     assert ring.ntt_engine == "mxu-cuda"
     eng = ring._mxu
+    assert eng.launches_per_call == (1 if logn <= 14 else 2)
     x = _residues(ring, (3,), logn)
     before = dict(ntt_mxu.LAUNCHES)
     got = ntt_mxu.four_step_cuda(eng, x, 0, inverse, lazy)
     key = "inverse" if inverse else "forward"
-    assert ntt_mxu.LAUNCHES[key] == before[key] + 1
+    assert ntt_mxu.LAUNCHES[key] == before[key] + eng.launches_per_call
     want = ntt_mxu.four_step_plain(eng, x, 0, inverse, lazy)
     assert torch.equal(got, want)
     assert bool((got < (2 if lazy else 1) * ring.q).all())
 
 
-@pytest.mark.parametrize("logn", [12, 14])
+@pytest.mark.parametrize("logn", [12, 14, 15, 16])
 def test_four_step_kernel_roundtrip_and_offset(cuda, logn):
     ring = _ring(logn, cuda)
     x = _residues(ring, (2,), 100 + logn)
@@ -72,15 +83,6 @@ def test_four_step_kernel_roundtrip_and_offset(cuda, logn):
         assert torch.equal(ring.intt_single(i, yi), xi)
 
 
-_RINGS = {}
-
-
-def _cached_ring(logn, cuda):
-    if logn not in _RINGS:
-        _RINGS[logn] = _ring(logn, cuda)
-    return _RINGS[logn]
-
-
 # (polynomials, limbs): 1, 3, 8, 60 and 208 (limb, polynomial) rows, each
 # within the 10 limbs left above limb offset 5
 _GEOMETRY_ROWS = [(1, 1), (1, 3), (2, 4), (6, 10), (26, 8)]
@@ -89,6 +91,8 @@ _GEOMETRY = [(logn, inverse, split)
              for inverse in (False, True)
              for split in ntt_mxu.SPLITS
              if split <= min(8, (128 if inverse else rr) // 16)]
+_GEOMETRY += [(logn, inverse, split) for logn in (15, 16) for inverse in (False, True)
+              for split in ntt_mxu.STEP_SPLITS]
 
 
 @pytest.mark.parametrize("logn, inverse, split", _GEOMETRY)
@@ -99,7 +103,7 @@ def test_four_step_kernel_geometry(cuda, logn, inverse, split):
     and reduces them on entry), bit-equal to the plain version."""
     ring = _cached_ring(logn, cuda)
     eng = ring._mxu
-    assert split <= eng.max_split(inverse)
+    assert split in eng.splits and split <= eng.max_split(inverse)
     g = torch.Generator(device=cuda).manual_seed(400 + logn)
     for polys, limbs in _GEOMETRY_ROWS:
         for limb_lo in (0, 5):
@@ -115,6 +119,74 @@ def test_four_step_kernel_geometry(cuda, logn, inverse, split):
                                              split=split)
                 want = ntt_mxu.four_step_plain(eng, x, limb_lo, inverse, lazy)
                 assert torch.equal(got, want), (polys, limbs, limb_lo, lazy)
+
+
+def _extreme_input(eng, limb, inverse):
+    """One polynomial of limb ``limb`` whose step-1 plane sums reach toward
+    their bound ±128·128·K: the weight row of step 1 with the
+    largest sum of |digit| is matched, digit by digit, by the three low
+    digits of one column of the input (forward: column j2 = 0, inverse:
+    row t1 = 0) at 127 or -128 with the weight's sign, and by the opposite
+    signs in the next column (j2 = 1, or t1 = 1); every other coefficient
+    uniform. A value is placed so that the kernel's entry reduction (a
+    Montgomery multiply by 2^32 mod q) gives it back: the first low word
+    x = v + j·q (j < 16) that reduces to v, over top digits 1..15."""
+    rr, cc = eng.rr, eng.cc
+    a = cc if inverse else rr                          # step 1's contraction
+    w = (eng.w1i_t if inverse else eng.w1f)[limb].to(torch.int64)
+    row = int(w.abs().sum(dim=1).argmax())
+    pos = w[row].reshape(4, a) > 0                     # [i, k]
+    q = int(eng.consts[limb, 0])
+    qinv, onem = (int(eng.consts[limb, c]) & 0xFFFFFFFF for c in (1, 4))
+    dev = w.device
+    x = torch.randint(0, q, (rr, cc), device=dev)
+    for col, sign in ((0, 1), (1, -1)):
+        d = torch.where(pos == (sign > 0), 127, -128)[:3]
+        low = d[0] + 256 * d[1] + 65536 * d[2]         # [a]
+        top = torch.arange(1, 16, device=dev)[:, None, None]
+        j = torch.arange(16, device=dev)[None, :, None]
+        v = low + (top << 24)                           # [15, 1, a]
+        cand = v + j * q                                # [15, 16, a]
+        ok = (v < q) & (cand < (1 << 32)) & (
+            ntt_mxu._mred_lazy32(cand, torch.tensor(onem, device=dev),
+                                 torch.tensor(q, device=dev),
+                                 torch.tensor(qinv, device=dev)) == v)
+        flat = ok.reshape(-1, a)
+        assert bool(flat.any(dim=0).all()), "no low word reduces to the digits"
+        first = flat.to(torch.int64).argmax(dim=0)
+        col_x = cand.reshape(-1, a).gather(0, first[None])[0]
+        if inverse:
+            x[col] = col_x
+        else:
+            x[:, col] = col_x
+    return x.reshape(1, 1, rr * cc)
+
+
+@pytest.mark.parametrize("logn", [15, 16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_four_step_kernel_extreme_plane_sums(cuda, logn, inverse):
+    """Plane sums of step 1 driven past a quarter of their bound 128·128·4A
+    (2^24 where step 1 contracts over A = 256: forward at logN 15-16,
+    inverse at 16), lazy and not, at a limb offset: the kernel stays
+    bit-equal to plain."""
+    ring = _cached_ring(logn, cuda)
+    eng = ring._mxu
+    limb = 3
+    x = _extreme_input(eng, limb, inverse)
+    # the plane sums the input makes, as the plain version forms them
+    v = ntt_mxu._mred_lazy32(x.reshape(eng.rr, eng.cc) & 0xFFFFFFFF,
+                             eng.consts[limb, 4].to(torch.int64) & 0xFFFFFFFF,
+                             eng.consts[limb, 0].to(torch.int64),
+                             eng.consts[limb, 1].to(torch.int64) & 0xFFFFFFFF)
+    planes = torch.cat(ntt_mxu._digit_planes(v.T if not inverse else v), dim=-1)
+    w = (eng.w1i_t if inverse else eng.w1f)[limb].to(torch.float64)
+    sums = w @ planes.T                                 # [(s, a), columns]
+    bound = 128 * 128 * w.shape[0]
+    assert float(sums.max()) > bound / 4 and float(sums.min()) < -bound / 4
+    for lazy in (False, True):
+        got = ntt_mxu.four_step_cuda(eng, x, limb, inverse, lazy)
+        want = ntt_mxu.four_step_plain(eng, x, limb, inverse, lazy)
+        assert torch.equal(got, want), lazy
 
 
 def test_four_step_kernel_rejects_bad_input(cuda):

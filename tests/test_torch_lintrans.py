@@ -348,15 +348,16 @@ def test_own_keys_slice(ref):
     tckks.verify_test_vectors(_want(ref["diags"], ref["va"] * ref["vb"]), got, 12.0)
 
 
-def reference_precision(seed: int = 1234, batch: int = 4):
+def reference_precision(seed: int = 1234, batch: int = 4, log_n: int = 14,
+                        log_qp: int = 438):
     """The JAX package on the CPU, on chip_smoke.py's CKKS step at
-    ckks_tpu_params(14, 438) with the same inputs (drawn from ``seed`` in
-    the same order): the get_precision_stats of the step and of
-    rescale(mul_relin) alone. chip_smoke.py's floor is the step's less one
-    bit. About ten minutes on the CPU."""
+    ckks_tpu_params(log_n, log_qp) with the same inputs (drawn from
+    ``seed`` in the same order): the get_precision_stats of the step and of
+    rescale(mul_relin) alone. chip_smoke.py's floors are the step's less
+    one bit. About ten minutes on the CPU at (14, 438)."""
     from lattigo_tpu import presets as jpresets
 
-    pj = jckks.Parameters(jpresets.ckks_tpu_params(14, 438))
+    pj = jckks.Parameters(jpresets.ckks_tpu_params(log_n, log_qp))
     slots = pj.max_slots
     rng = np.random.default_rng(seed)
 
@@ -394,6 +395,10 @@ def reference_precision(seed: int = 1234, batch: int = 4):
 
 
 if __name__ == "__main__":
+    import sys
+
     jax.config.update("jax_platforms", "cpu")
-    step, mul = reference_precision()
+    # python tests/test_torch_lintrans.py [logN logQP]
+    shape = dict(log_n=int(sys.argv[1]), log_qp=int(sys.argv[2])) if len(sys.argv) > 2 else {}
+    step, mul = reference_precision(**shape)
     print(f"step {step}\nrescale(mul_relin) {mul}")

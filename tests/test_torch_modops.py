@@ -139,3 +139,25 @@ def test_lazy_tree_sum(bits):
     np.testing.assert_array_equal(got % np.uint64(q), want % np.uint64(q))
     exact = np.array(terms.astype(object).sum(axis=0) % q, dtype=np.uint64)
     np.testing.assert_array_equal(got % np.uint64(q), exact)
+
+
+@pytest.mark.parametrize("bits", [28, 60])
+def test_mred_sum_chunks(bits, monkeypatch):
+    """The chunked gadget MAC: at every chunk size the same values as one
+    product over the whole digit axis (what a call under the limit runs),
+    equal to the exact Σ_d a_d·b_d·2^-64 mod q."""
+    q, c, t, rng = _setup(bits)
+    beta, n = 7, 64
+    a = _u64(rng, q, size=(2, beta, 1, 1, n))
+    b = _u64(rng, q, size=(beta, 2, 1, n))
+    ta, tb = to_torch(a, "cpu"), to_torch(b, "cpu")
+    args = (t["q"], t["qinv"], t["bhi"], tm.margin_for(q))
+    whole = tm.mred_sum(ta, tb, *args)
+    assert whole.shape == (2, 2, 1, n)
+    for digits in (1, 2, 3, 6):
+        monkeypatch.setattr(tm, "MAC_CHUNK_BYTES", digits * 8 * 2 * 2 * n)
+        np.testing.assert_array_equal(to_numpy(tm.mred_sum(ta, tb, *args)),
+                                      to_numpy(whole))
+    rinv = pow(1 << 64, -1, q)
+    exact = (a.astype(object) * b.astype(object)).sum(axis=1) * rinv % q
+    np.testing.assert_array_equal(to_numpy(whole), np.array(exact, dtype=np.uint64))

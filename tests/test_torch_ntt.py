@@ -28,6 +28,18 @@ from lattigo_tpu_torch.utils.primes import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only add overhead here, and
+    they crowd the other test workers' cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _moduli(bits, n, k):
     return NTTFriendlyPrimesGenerator(bits, 2 * n).next_alternating_primes(k)
 
@@ -130,3 +142,47 @@ def test_mxu_single_limb_offset(mxu_pair, inverse):
     np.testing.assert_array_equal(got, want)
     back = tr.ntt_single if inverse else tr.intt_single
     np.testing.assert_array_equal(to_numpy(back(1, to_torch(got, "cpu"))), x1)
+
+
+@pytest.fixture(scope="module", params=[(15, 2), (16, 1)], ids=["logN15", "logN16"])
+def wide_pair(request):
+    """The four-step shapes of R = 256 (C = 128 at logN 15, 256 at logN
+    16), where the kernel runs one launch a step: the JAX engine with int8
+    digits and the port's plain version on 28-bit primes; inputs uniform
+    with every third coefficient at q - 1."""
+    logn, k = request.param
+    n = 1 << logn
+    moduli = _moduli(28, n, k)
+    psis = [primitive_nth_root(q, 2 * n) for q in moduli]
+    jeng = jmxu.NTTMxu(n, moduli, psis, dtype=jnp.int8)
+    tr = TRing(n, moduli, device="cpu")
+    assert tr.ntt_engine == "mxu-plain"
+    assert (tr._mxu.rr, tr._mxu.cc) == (jeng.rr, jeng.cc) == (256, n // 256)
+    qs = np.array(moduli, dtype=np.uint64)[:, None]
+    x = np.random.default_rng(logn).integers(0, 1 << 62, (1, k, n), dtype=np.uint64) % qs
+    x[..., ::3] = (qs - np.uint64(1))
+    return jeng, tr, moduli, x
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_mxu_plain_vs_pallas_wide(wide_pair, inverse, lazy):
+    jeng, tr, moduli, x = wide_pair
+    fn = jeng.intt if inverse else jeng.ntt
+    want = np.asarray(fn(jnp.asarray(x), len(moduli) - 1, lazy=lazy, interpret=True))
+    got = to_numpy(tmxu.four_step_plain(tr._mxu, to_torch(x, "cpu"), 0,
+                                        inverse, lazy))
+    np.testing.assert_array_equal(got, want)
+    bound = 2 if lazy else 1
+    for i, q in enumerate(moduli):
+        assert got[:, i].max() < bound * q
+
+
+def test_mxu_roundtrip_and_offset_wide(wide_pair):
+    jeng, tr, moduli, x = wide_pair
+    xt = to_torch(x, "cpu")
+    y = tr.ntt(xt)
+    np.testing.assert_array_equal(to_numpy(tr.intt(y)), x)
+    i = len(moduli) - 1
+    yi = tr.ntt_single(i, xt[:, i:i + 1].contiguous())
+    np.testing.assert_array_equal(to_numpy(yi), to_numpy(y[:, i:i + 1]))

@@ -131,8 +131,7 @@ def test_u32_tables(pair):
 
 def _jax_rule(n, moduli):
     """lattigo_tpu/ring/ring.py:325-363 on a TPU, STANDARD ring, no
-    environment switches, logN ≤ 14 (the port's four-step kernel stops
-    there)."""
+    environment switches."""
     if n < 512:
         return "radix2"
     if n >= 4096 and all(q < (1 << 29) for q in moduli):
@@ -148,7 +147,8 @@ def _jax_rule(n, moduli):
     (512, 28, 1, "u32"), (1024, 29, 1, "u32"), (4096, 28, 2, "mxu"),
     (4096, 29, 4, "u32"), (256, 28, 1, "radix2"), (1024, 31, 1, "radix2"),
     (4096, 40, 3, "mxu64"), (2048, 40, 3, "radix2"), (8192, 60, 2, "mxu64"),
-    (4096, 31, 2, "mxu64"),
+    (4096, 31, 2, "mxu64"), (32768, 28, 2, "mxu"), (65536, 28, 2, "mxu"),
+    (32768, 29, 2, "u32"), (32768, 30, 2, "mxu64"), (65536, 30, 2, "mxu64"),
 ])
 def test_engine_choice(n, bits, k, engine):
     moduli = _moduli(bits, n, k)
