@@ -238,11 +238,30 @@ Phases (one line each; any failure exits non-zero before the result):
    it comes, in chunks of rows (nothing cloned); launches per request
    and step, step and request ms, set-up s, peak memory; 17b's host
    decode timed apart and its step profiled;
-18. the card's name and power limit as nvidia-smi gives them, the
-   kernels' JSON line (the launches of phases 12–17 in
+18. the last root drivers, each path with the launch counts zeroed just
+   before and read just after: 18a, right after phase 16 and on its
+   evaluator, keys and secret (its circuits freed), the per-stage
+   bootstrap audit (``diag_bootstrap_stages_torch.py``) at full logN 16
+   of the recipe's input and of the input of phase 16's first bootstrap:
+   the JAX script's lines, the end-to-end bits at phase 16's bootstrap
+   floor, and the tail (slots 4 bits or more under the mean) split by
+   the part that makes it; for the sign-stage input, the audited output
+   set to the default scale (``CircuitBootstrapper``'s relabel) is phase
+   16's output bit for bit, and its real part, which phase 16 reads, has
+   phase 16's tail slots; after phase 17, 18b
+   ``validate_presets_torch.py`` on the card at logN 9, all eight
+   presets, each at the JAX package's CPU figures less a bit; 18c
+   ``bench_scaling_torch.py``, 4 ranks sharing the card over gloo, a
+   batch of 16 at CKKS logN 12: no byte on the dp axis, the gathered
+   result bit-equal to one process, every ring on ``mxu64-plain``; no
+   kernel launch on any of the three (18c's counted here and on the
+   ranks);
+19. the card's name and power limit as nvidia-smi gives them, the
+   kernels' JSON line (the launches of phases 12–18 in
    ``scale_out_launches``, ``examples_launches``, ``gate_launches``,
-   ``driver_launches``, ``btp16_launches``, ``bgv15_launches`` and
-   ``ckks16_launches``), and the result line.
+   ``driver_launches``, ``btp16_launches``, ``bgv15_launches``,
+   ``ckks16_launches``, ``audit_launches``, ``validate_launches`` and
+   ``scaling_launches``), and the result line.
 
 Needs one CUDA card, ``nvcc`` and the repository beside this file; imports
 nothing of JAX.
@@ -343,6 +362,25 @@ BTP_RADIX2_OPS = (432089, 0.767, 317)
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def launch_counts() -> dict:
+    """Both kernels' launch counts since their last reset."""
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    return {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
+
+
+def reset_launch_counts() -> None:
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    ntt_mxu.reset_launches()
+    ntt_pallas.reset_launches()
+
+
+def set_row_launches(rows, key: str, launches: dict) -> None:
+    """Each kernel row's ``key``: its family's count in its direction."""
+    for r in rows:
+        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
+        r[key] = launches[fam]["inverse" if r["name"].endswith("inverse") else "forward"]
 
 
 def host_us_per_call(fn, reps: int = 1000) -> float:
@@ -752,8 +790,9 @@ def profile_step(step, kernel: str = "ntt_mxu_kernel",
                 f"{k[:50]} {v:.0f} us" for k, (v, _) in top)), family
 
 
-def ckks_server(log_n: int = LOG_N, log_qp: int = LOG_QP):
-    """Phase 5's server on the card (17b's at another size): parameters
+def ckks_server(log_n: int = LOG_N, log_qp: int = LOG_QP, device="cuda"):
+    """Phase 5's server on the card (17b's at another size; on the CPU
+    with ``device="cpu"``, where the rings run their plain versions): parameters
     ``ckks_tpu_params(log_n, log_qp)``, keys (Galois keys scoped to the
     transformation's level), the inputs a and b (BATCH requests), the
     encoded transformation, serve() (encrypt both, the step, decrypt,
@@ -767,14 +806,19 @@ def ckks_server(log_n: int = LOG_N, log_qp: int = LOG_QP):
     from lattigo_tpu_torch.presets import ckks_tpu_params
     from lattigo_tpu_torch.schemes import ckks
 
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    params = ckks.Parameters(ckks_tpu_params(log_n, log_qp))   # on cuda
-    torch.cuda.synchronize()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = ckks.Parameters(ckks_tpu_params(log_n, log_qp), device=device)
+    sync()
     params_s = time.perf_counter() - t0
-    check(params.ring_q.device.type == "cuda", "parameters not on the card")
+    check(params.ring_q.device.type == torch.device(device).type,
+          f"parameters not on {device}")
     for name, ring in (("Q", params.ring_q), ("P", params.ring_p)):
-        check(ring.ntt_engine == "mxu-cuda", f"ring {name} on {ring.ntt_engine}")
+        check(not on_card or ring.ntt_engine == "mxu-cuda",
+              f"ring {name} on {ring.ntt_engine}")
     slots = params.max_slots
     rng = np.random.default_rng(SEED)
 
@@ -790,15 +834,15 @@ def ckks_server(log_n: int = LOG_N, log_qp: int = LOG_QP):
         level_q=level, scale=params.q_moduli[level], slots=slots)
     els = lt.galois_elements(params)
     check(lt.n1 == 4 and len(els) == 6, f"n1 {lt.n1} with {len(els)} Galois keys")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
     kg = rlwe.KeyGenerator(params)
     sk = kg.gen_secret_key(gen)
     rlk = kg.gen_relinearization_key(gen, sk)
     gks = kg.gen_galois_keys(gen, els, sk, levels={g: level for g in els})
-    torch.cuda.synchronize()
+    sync()
     info = dict(setup_s=time.perf_counter() - t0, params_s=params_s, n1=lt.n1,
-                galois_keys=len(gks),
-                key_level=level, keys_peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+                galois_keys=len(gks), key_level=level,
+                keys_peak_mb=torch.cuda.max_memory_allocated() / 2**20 if on_card else None)
     ev = ckks.Evaluator(params, rlwe.EvaluationKeySet(rlk, gks))
     lte = lintrans.LinTransEvaluator(ev)
     encryptor = rlwe.Encryptor(params, sk)
@@ -1552,7 +1596,6 @@ def bootstrap_flow(device, log_n: int | None, timed):
 def phase_bootstrap(rows, log_n: int | None = None):
     import numpy as np
     import torch
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1590,16 +1633,12 @@ def phase_bootstrap(rows, log_n: int | None = None):
         torch.cuda.synchronize()
         marks[name] = (time.perf_counter(), ct)
 
-    ntt_mxu.reset_launches()
-    ntt_pallas.reset_launches()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = res["run"](mark)
-    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
-    for r in rows:
-        r["btp_launches"] = launches["ntt_mxu" if r["name"].startswith("ntt_mxu")
-                                     else "ntt_pallas"][
-            "inverse" if r["name"].endswith("inverse") else "forward"]
+    launches = launch_counts()
+    set_row_launches(rows, "btp_launches", launches)
     check(all(v == 0 for d in launches.values() for v in d.values()),
           f"a kernel launched on the mxu64-plain bootstrap: {launches}")
     check(ops.calls["radix2"] == 0 and ops.calls["mxu64"] > 0,
@@ -2224,7 +2263,6 @@ def sparse_bootstrap_flow(device, log_n: int | None, timed):
 
 def phase_sparse_bootstrap(rows, log_n: int | None = None):
     import torch
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2253,18 +2291,14 @@ def phase_sparse_bootstrap(rows, log_n: int | None = None):
         torch.cuda.synchronize()
         marks[name] = time.perf_counter()
 
-    ntt_mxu.reset_launches()
-    ntt_pallas.reset_launches()
+    reset_launch_counts()
     mark("start")
     outs = res["sparse"](mark)
     mark("unpack")
     ci_outs = res["ci_pair"]()
     mark("ci")
-    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
-    for r in rows:
-        r["sparse_btp_launches"] = launches["ntt_mxu" if r["name"].startswith("ntt_mxu")
-                                            else "ntt_pallas"][
-            "inverse" if r["name"].endswith("inverse") else "forward"]
+    launches = launch_counts()
+    set_row_launches(rows, "sparse_btp_launches", launches)
     check(all(v == 0 for d in launches.values() for v in d.values()),
           f"a kernel launched on the mxu64-plain bootstraps: {launches}")
     bits = {"sparse": res["sparse_bits"](outs), "ci": res["ci_bits"](ci_outs)}
@@ -3089,10 +3123,7 @@ def phase_examples(rows):
                          f"u32 {u32}")
     finally:
         ring_mod.Ring.__init__ = init
-    for r in rows:
-        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
-        r["examples_launches"] = totals[fam]["inverse" if r["name"].endswith("inverse")
-                                             else "forward"]
+    set_row_launches(rows, "examples_launches", totals)
     check(totals["ntt_pallas"]["forward"] > 0 and totals["ntt_pallas"]["inverse"] > 0,
           "phase 13: the blind-rotation example launched no u32 kernel")
     print(f"phase 13 examples: all {len(EXAMPLES)} main()s passed their asserts on "
@@ -3154,11 +3185,8 @@ def phase_gate(rows):
             check(torch.equal(got, want), f"phase 14: {fam} kernel != plain at "
                   f"{tuple(x.shape)} inverse={inverse} lazy={lazy}")
         held += len(recorded)
-    counts = {"ntt_mxu": mxu, "ntt_pallas": u32}
+    set_row_launches(rows, "gate_launches", {"ntt_mxu": mxu, "ntt_pallas": u32})
     for r in rows:
-        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
-        r["gate_launches"] = counts[fam]["inverse" if r["name"].endswith("inverse")
-                                         else "forward"]
         check(r["gate_launches"] > 0, f"phase 14: {r['name']} not launched by the gate")
     g = res["gates"]
     print(f"phase 14 gate (gpu_gate.py): PASS on {res['device']['kind']}; gate_kat "
@@ -3180,21 +3208,16 @@ def phase_gate(rows):
 def phase_bootstrap_driver(rows):
     import torch
     from lattigo_tpu_torch.circuits import bootstrap_driver
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
 
     gc.collect()
     torch.cuda.empty_cache()
     held_mb = torch.cuda.memory_allocated() / 2**20
     t_phase = time.perf_counter()
-    ntt_mxu.reset_launches()
-    ntt_pallas.reset_launches()
+    reset_launch_counts()
     res = bootstrap_driver.run(preset=BTP_PRESET, once=True, device="cuda", seed=SEED)
     torch.cuda.synchronize()
-    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
-    for r in rows:
-        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
-        r["driver_launches"] = launches[fam]["inverse" if r["name"].endswith("inverse")
-                                             else "forward"]
+    launches = launch_counts()
+    set_row_launches(rows, "driver_launches", launches)
     check(all(v == 0 for d in launches.values() for v in d.values()),
           f"phase 15: a kernel launched on the mxu64-plain bootstrap: {launches}")
     check(res["engine"] == "mxu64-plain", f"phase 15: ring Q on {res['engine']}")
@@ -3276,13 +3299,14 @@ def circuits_btp_flow(device, log_n: int | None = None, timed=None):
     }
     return dict(params=params, btp=b, circuits=circuits, inputs=x, decrypt=decrypt,
                 levels={"sign stage": ct_sign.level, "inverse full domain": ct_inv.level},
-                galois_keys=len(r["galois_keys"]))
+                galois_keys=len(r["galois_keys"]), keys=keys, sk=r["sk"],
+                audit_inputs={"the recipe's input": (r["ct"], r["slots"])})
 
 
 def phase_circuits_btp(rows, log_n: int | None = None):
+    import numpy as np
     import torch
     from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3307,9 +3331,8 @@ def phase_circuits_btp(rows, log_n: int | None = None):
     check(engines == {"Q": "mxu64-plain", "P": "radix2-plain"},
           f"phase 16 rings on {engines}")
     setup_mb = torch.cuda.max_memory_allocated() / 2**20
-    ntt_mxu.reset_launches()
-    ntt_pallas.reset_launches()
-    results, first_boot = {}, []
+    reset_launch_counts()
+    results, first_boot, first_in = {}, [], []
     for name, (run, chk, btp) in res["circuits"].items():
         boot_ms = []
         inner = btp.bootstrap
@@ -3322,6 +3345,7 @@ def phase_circuits_btp(rows, log_n: int | None = None):
             _ms.append((time.perf_counter() - t0) * 1e3)
             if not first_boot:
                 first_boot.append(out)
+                first_in.append(ct)
             return out
 
         btp.bootstrap = timed_bootstrap
@@ -3338,19 +3362,17 @@ def phase_circuits_btp(rows, log_n: int | None = None):
               f"phase 16 {name}: worst {worst:.2f} / mean {mean:.2f} bits below the "
               f"floor {floor[0]} / {floor[1]}")
         results[name] = (ms, boot_ms, worst, mean, out.level)
-    launches = {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
-    for r in rows:
-        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
-        r["btp16_launches"] = launches[fam]["inverse" if r["name"].endswith("inverse")
-                                            else "forward"]
+    launches = launch_counts()
+    set_row_launches(rows, "btp16_launches", launches)
     check(all(v == 0 for d in launches.values() for v in d.values()),
           f"phase 16: a kernel launched on the mxu64-plain rings: {launches}")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     # the sign stage's bootstrap alone: its output against the encrypted x,
-    # and how many of its slots lie 4 bits or more under its mean
+    # and its slots that lie 4 bits or more under its mean
     boot_out = res["decrypt"](first_boot[0])
     boot_bits = bp.precision_bits(boot_out, res["inputs"]["sign_x"])
-    boot_tail = int((abs(boot_out - res["inputs"]["sign_x"]) > 2.0 ** (4 - boot_bits[1])).sum())
+    boot_tail = np.flatnonzero(
+        abs(boot_out - res["inputs"]["sign_x"]) > 2.0 ** (4 - boot_bits[1])).tolist()
     check(boot_bits[0] >= BTP16_BOOT_MIN_BITS[0] and boot_bits[1] >= BTP16_BOOT_MIN_BITS[1],
           f"phase 16: the sign stage's bootstrap {boot_bits[0]:.2f} / {boot_bits[1]:.2f} "
           f"bits below the floor {BTP16_BOOT_MIN_BITS[0]} / {BTP16_BOOT_MIN_BITS[1]}")
@@ -3366,10 +3388,16 @@ def phase_circuits_btp(rows, log_n: int | None = None):
               f"{BTP16_MIN_BITS[k][1]})" for k, (ms, b, w, m, lvl) in results.items())
           + f"; the sign stage's bootstrap alone worst {boot_bits[0]:.2f} / mean "
           f"{boot_bits[1]:.2f} bits (floor {BTP16_BOOT_MIN_BITS[0]} / "
-          f"{BTP16_BOOT_MIN_BITS[1]}), {boot_tail} of {len(boot_out)} slots 4 bits or "
-          f"more under its mean; kernel launches {launches}; peak device memory {peak_mb:.1f} MiB "
+          f"{BTP16_BOOT_MIN_BITS[1]}), {len(boot_tail)} of {len(boot_out)} slots 4 bits or "
+          f"more under its mean {boot_tail[:8]}; kernel launches {launches}; peak device memory {peak_mb:.1f} MiB "
           f"({setup_mb:.1f} over the set-up; {held_mb:.1f} held by earlier phases at "
           f"the start); the phase {time.perf_counter() - t_phase:.1f} s")
+    # phase 18a audits that bootstrap again, from its own input, and holds
+    # it against this one
+    res["audit_inputs"]["the sign stage's bootstrap input"] = (first_in[0],
+                                                               res["inputs"]["sign_x"])
+    res["sign_boot"] = dict(out=first_boot[0], slots=boot_out, tail=boot_tail)
+    return res
 
 # -- phase 17: the BGV and CKKS steps at Lattigo's two largest ring degrees ----
 
@@ -3607,6 +3635,193 @@ def phase_wide_ckks(rows):
             r["ckks16_device_us_per_launch"] = us / n
 
 
+# -- phase 18: the last root drivers ------------------------------------------
+
+# 18b: the JAX package's own figures, (worst, mean) bits at logN 9 on the
+# CPU (JAX_PLATFORMS=cpu python validate_presets.py); each preset is held
+# on the card at these less one bit
+VALIDATE_LOG_N = 9
+VALIDATE_JAX_BITS = {
+    "N15QP768_H192_H32": (17.1, 19.1), "N16QP1546_H192_H32": (20.2, 21.6),
+    "N16QP1547_H192_H32": (27.1, 28.3), "N16QP1553_H192_H32": (20.2, 21.6),
+    "N16QP1767_H32768_H32": (20.2, 21.6), "N16QP1788_H32768_H32": (27.1, 28.3),
+    "N16QP1793_H32768_H32": (20.2, 21.6), "N15QP880_H16384_H32": (20.2, 21.6),
+}
+# 18c: bench_scaling.py's defaults, 4 ranks sharing the card over gloo
+SCALING_RANKS, SCALING_BATCH = 4, 16
+
+
+def tail_text(t: dict, n: int) -> str:
+    """One ``bootstrap_diag.tail_split`` result as text."""
+    return (f"the tail: {t['count']} of {n} slots 4 bits or more under the mean, slots "
+            f"{t['slots'][:8]}, the largest part there {t['largest']}, max log2 there "
+            + (", ".join(f"{k} {v:.1f}" for k, v in t["max_log2"].items())
+               if t["count"] else "-"))
+
+
+def phase_stage_audit(rows, btp16):
+    """18a: the per-stage audit (``diag_bootstrap_stages_torch.py``) on
+    phase 16's evaluator, keys and secret, its circuits freed: of the
+    recipe's input (uniform complex slots at the minimum input level, the
+    JAX script's) and of the input of the sign stage's bootstrap (x ∈
+    ±[2^-8, 1]), whose output phase 16 holds alone. The audit reads the
+    evaluator's output; phase 16 read it after ``CircuitBootstrapper``'s
+    ``set_scale``: that relabel of the audited output must be phase 16's
+    ciphertext bit for bit, and the real part's tail phase 16's slots."""
+    from fractions import Fraction
+
+    import numpy as np
+    import torch
+    from lattigo_tpu_torch.circuits import bootstrap_diag
+    from lattigo_tpu_torch.circuits import bootstrapping_presets as bp
+
+    btp16.pop("circuits")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    b, sign_boot = btp16["btp"], btp16.pop("sign_boot")
+    for label, (ct, slots) in btp16.pop("audit_inputs").items():
+        t0 = time.perf_counter()
+        a = bootstrap_diag.audit(b, btp16["keys"], ct, btp16["sk"], slots, BTP16_PRESET)
+        torch.cuda.synchronize()
+        audit_s = time.perf_counter() - t0
+        for line in a["lines"]:
+            print(f"phase 18a ({label}) " + line)
+        got = a["got"]
+        check(got.shape == (btp16["params"].max_slots,) and bool(np.isfinite(got).all()),
+              f"phase 18a: decoded slots of shape {got.shape}, not all finite")
+        worst, mean = a["end_to_end_bits"], a["end_to_end_mean_bits"]
+        check(worst >= BTP16_BOOT_MIN_BITS[0] and mean >= BTP16_BOOT_MIN_BITS[1],
+              f"phase 18a ({label}): {worst:.2f} / {mean:.2f} bits below the floor "
+              f"{BTP16_BOOT_MIN_BITS[0]} / {BTP16_BOOT_MIN_BITS[1]}")
+        t, split = a["tail"], a["evalmod_split"]
+        print(f"phase 18a stage audit (diag_bootstrap_stages_torch.py "
+              f"{btp16['params'].log_n} {BTP16_PRESET}) of {label} at level {ct.level}: "
+              f"bootstrap {a['bootstrap_s'] * 1e3:.1f} ms (host clock, the hook's stages "
+              f"kept), the audit {audit_s:.1f} s; end-to-end worst {worst:.2f} / mean "
+              f"{mean:.2f} bits (floor {BTP16_BOOT_MIN_BITS[0]} / {BTP16_BOOT_MIN_BITS[1]}); "
+              f"encapsulation rms {a['encapsulation']['rms']:.3g} coeff units; post-C2S "
+              f"residual max 2^{a['post_c2s']['re']['max_log2']:.1f} / "
+              f"2^{a['post_c2s']['im']['max_log2']:.1f}; EvalMod max / mean: ladder "
+              f"2^{split['ladder']['max_log2']:.1f} / {split['ladder']['mean']:.3g}, approx "
+              f"2^{split['approx']['max_log2']:.1f} / {split['approx']['mean']:.3g}; S2C-added "
+              f"slot max 2^{a['s2c_slot']['max_log2']:.1f}; err_in max "
+              f"2^{a['err_in']['max_log2']:.1f}, err_pre max 2^{a['err_pre']['max_log2']:.1f}; "
+              + tail_text(t, len(got)))
+        if np.isrealobj(slots):
+            # phase 16's bootstrap: CircuitBootstrapper's relabel of the
+            # audited output is phase 16's output, and phase 16 reads the
+            # real part of this real input: its per-slot bits, mean and tail
+            out, want = a["stages"]["out"], sign_boot["out"]
+            if Fraction(out.scale) != Fraction(want.scale):
+                out = b.ev.set_scale(out, want.scale)
+            check(out.level == want.level and Fraction(out.scale) == Fraction(want.scale)
+                  and torch.equal(out.value, want.value),
+                  f"phase 18a ({label}): the audited bootstrap, set to phase 16's scale, "
+                  f"is not phase 16's output")
+            e_re = np.abs(got.real - slots)
+            worst_re, mean_re = bp.precision_bits(got.real, slots)
+            t = bootstrap_diag.tail_split(e_re, mean_re,
+                                          {k: p.real for k, p in a["parts"].items()})
+            check(t["slots"] == sign_boot["tail"],
+                  f"phase 18a ({label}): tail slots {t['slots']} on the real part, "
+                  f"phase 16's {sign_boot['tail']}")
+            moved = float(np.abs(got.real - sign_boot["slots"]).max())
+            print(f"phase 18a stage audit of {label}, the real part as phase 16 reads it: "
+                  f"worst {worst_re:.2f} / mean {mean_re:.2f} bits; the audited output, set "
+                  f"to the default scale, bit-equal to phase 16's; set_scale moved a slot "
+                  f"by at most 2^{np.log2(moved):.1f}; the same tail slots as phase 16; "
+                  + tail_text(t, len(got)))
+        del a
+    launches = launch_counts()
+    set_row_launches(rows, "audit_launches", launches)
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"phase 18a: a kernel launched on the mxu64-plain rings: {launches}")
+    print(f"phase 18a: kernel launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({held_mb:.1f} held at the "
+          f"start); the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_validate_presets(rows):
+    """18b: ``validate_presets_torch.py`` on the card at logN 9, all eight
+    presets, each at the JAX package's CPU figures less one bit."""
+    import contextlib
+    import io
+    import torch
+    from lattigo_tpu_torch.circuits import preset_validator
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = preset_validator.main(["--log-n", str(VALIDATE_LOG_N), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    set_row_launches(rows, "validate_launches", launches)
+    for line in buf.getvalue().splitlines():
+        print("phase 18b validate_presets_torch.py: " + line)
+    check(list(got) == list(preset_validator.DEFAULT_PRESETS),
+          f"phase 18b: validated {list(got)}")
+    for name, (worst, mean, _) in got.items():
+        floor = tuple(b - 1 for b in VALIDATE_JAX_BITS[name])
+        check(worst >= floor[0] and mean >= floor[1],
+              f"phase 18b {name}: {worst:.2f} / {mean:.2f} bits below the floor "
+              f"{floor[0]:.1f} / {floor[1]:.1f} (the JAX package's CPU figures less a bit)")
+    print(f"phase 18b validate_presets_torch.py at logN {VALIDATE_LOG_N} on the card: "
+          + "; ".join(f"{k} {w:.2f} / {m:.2f} bits in {s:.1f} s (JAX CPU "
+                      f"{VALIDATE_JAX_BITS[k][0]} / {VALIDATE_JAX_BITS[k][1]})"
+                      for k, (w, m, s) in got.items())
+          + f"; kernel launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_scaling(rows):
+    """18c: ``bench_scaling_torch.py`` with 4 ranks sharing the card."""
+    import contextlib
+    import io
+    import torch
+    from lattigo_tpu_torch.parallel import scaling
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = scaling.run(SCALING_RANKS, SCALING_BATCH, "cuda")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    # the sharded steps run on the ranks: their counts join this process's
+    for rank in res["rank_launches"]:
+        for fam, d in rank.items():
+            for k, v in d.items():
+                launches[fam][k] += v
+    set_row_launches(rows, "scaling_launches", launches)
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"phase 18c: a kernel launched on the mxu64-plain rings: {launches}")
+    check(res["engine"] == "mxu64-plain" and res["rank_engines"] == ["mxu64-plain"],
+          f"phase 18c: rings on {res['engine']} here, {res['rank_engines']} on the ranks")
+    check(res["collectives_on_dp_axis"] == 0 and res["bit_exact"],
+          f"phase 18c: {res['collectives_on_dp_axis']} bytes on the dp axis, "
+          f"bit_exact {res['bit_exact']}")
+    print("phase 18c bench_scaling_torch.py line: " + buf.getvalue().strip().splitlines()[-1])
+    print(f"phase 18c dp scaling: {SCALING_RANKS} ranks ({res['backend']}, sharing the "
+          f"card) of a batch of {SCALING_BATCH} at CKKS logN {res['log_n']}, "
+          f"{res['local_shape'][0]} ciphertexts a rank; rings on {res['engine']} here and "
+          f"{res['rank_engines']} on the ranks; 0 bytes on the dp axis, bit-exact; step "
+          f"{res['t_1dev_s'] * 1e3:.3f} ms in one process, {res['t_Ndev_s'] * 1e3:.3f} ms "
+          f"on the slowest rank (host clock; the ratio measures no scaling on one card); "
+          f"kernel launches here and on the ranks {launches}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3637,9 +3852,13 @@ def main() -> int:
     phase_examples(rows)
     phase_gate(rows)
     phase_bootstrap_driver(rows)
-    phase_circuits_btp(rows)
+    btp16 = phase_circuits_btp(rows)
+    phase_stage_audit(rows, btp16)
+    del btp16
     phase_wide_bgv(rows)
     phase_wide_ckks(rows)
+    phase_validate_presets(rows)
+    phase_scaling(rows)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

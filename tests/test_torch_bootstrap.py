@@ -15,7 +15,10 @@ ciphertext, and runs its own bootstrap through ``jitted(...).stages`` once
 ciphertext, encodes its own DFT matrices and bootstraps; every encoded
 matrix and each stage's output (``pre``, ``c2s`` re/im, ``mod1`` re/im, the
 final ciphertext) must be bit-equal to the JAX package's (tolerance 0),
-with the same exact ``Fraction`` scale and the same level. Then the port's
+with the same exact ``Fraction`` scale and the same level; so must the
+stages that the per-stage audit (``circuits/bootstrap_diag.py``, the
+counterpart of ``diag_bootstrap_stages.py``) sees in one more bootstrap,
+which reports every figure of the JAX script. Then the port's
 own keys run its ``run_recipe`` at logN 9 against the JAX package's
 slow-tier thresholds (worst ≥ 15.5, avg ≥ 17.5 bits), and
 ``SecretKeyBootstrapper`` refreshes to the top level. The sparse
@@ -33,6 +36,7 @@ and with further options, is ``tests/test_torch_bootstrap_own.py``.
 import copy
 from dataclasses import replace
 from fractions import Fraction
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -49,7 +53,7 @@ from lattigo_tpu.schemes import ckks as jckks
 from lattigo_tpu.schemes.ckks import bridge as jbridge
 from lattigo_tpu_torch import interop, rlwe as trlwe
 from lattigo_tpu_torch.circuits import (
-    bootstrapping as tbts, bootstrapping_presets as tbp, dft as tdft,
+    bootstrap_diag, bootstrapping as tbts, bootstrapping_presets as tbp, dft as tdft,
 )
 from lattigo_tpu_torch.ring.ring import CONJUGATE_INVARIANT
 from lattigo_tpu_torch.schemes import ckks as tckks
@@ -263,6 +267,62 @@ def test_stage_bit_equal(ref, port, stage):
     got = port["stages"][stage]
     assert (got.level, Fraction(got.scale)) == (level, scale)
     np.testing.assert_array_equal(interop.to_numpy(got.value), value)
+
+
+@pytest.fixture(scope="module")
+def audited(ref, port):
+    """The per-stage audit (``diag_bootstrap_stages.py``'s counterpart) of
+    one more bootstrap of the carried ciphertext."""
+    return bootstrap_diag.audit(port["btp"], port["keys"], port["ct"], port["sk"],
+                                ref["v"], PRESET)
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_audit_stages_bit_equal(ref, audited, stage):
+    """The stages the audit saw through ``on_stage`` are the JAX package's
+    ``jitted(...).stages``: tolerance 0, the same level and exact scale."""
+    value, level, scale = ref["stages"][stage]
+    got = audited["stages"][stage]
+    assert (got.level, Fraction(got.scale)) == (level, scale)
+    np.testing.assert_array_equal(interop.to_numpy(got.value), value)
+
+
+def test_audit_end_to_end(ref, port, audited):
+    """Its decoded output and end-to-end bits are those of the decrypted
+    bootstrap."""
+    np.testing.assert_array_equal(audited["got"], port["got"])
+    errs = np.abs(port["got"] - ref["v"])
+    assert audited["end_to_end_bits"] == -np.log2(errs.max())
+    assert audited["end_to_end_mean_bits"] == np.mean(-np.log2(np.maximum(errs, 2.0 ** -60)))
+    assert audited["lines"][-2] == f"logN={LOG_N} {PRESET}: end-to-end " \
+        f"{-np.log2(errs.max()):.1f} bits"
+
+
+def test_audit_decomposition(audited):
+    """The decomposition's terms (err_in, err_pre, err_s2c) and every other
+    figure the JAX script prints are there, and EvalMod's output was found
+    in the bit-reversed order that the split through S2C places it by.
+    err_total = err_pre + err_s2c holds by construction (err_s2c is the
+    rest), so the sum itself is not checked."""
+    assert audited["post_evalmod"]["order"] == "bitrev"
+    for key in ("encapsulation", "post_c2s", "post_evalmod_imag", "evalmod_split",
+                "post_evalmod", "raw_s2c", "s2c_slot", "err_in", "err_pre",
+                "err_pre_top", "err_pre_fits", "scalar_fit"):
+        assert key in audited, key
+    assert sorted(audited["evalmod_split"]) == ["approx", "ladder", "total"]
+    assert all(line.startswith(f"logN={LOG_N} {PRESET}: ") for line in audited["lines"])
+    assert len(audited["lines"]) == 15 + len(audited["err_pre_fits"])
+
+
+def test_audit_refuses_slim_and_batches(port):
+    """The slim order has no S2C stage to split, and the audit takes one
+    ciphertext."""
+    slim = SimpleNamespace(btp=SimpleNamespace(circuit_order=tbts.DECODE_THEN_MODUP))
+    with pytest.raises(ValueError, match="order"):
+        bootstrap_diag.audit(slim, None, port["ct"], port["sk"], None)
+    batched = port["ct"].replace(value=port["ct"].value[None])
+    with pytest.raises(ValueError, match="batch"):
+        bootstrap_diag.audit(port["btp"], port["keys"], batched, port["sk"], None)
 
 
 def test_carried_precision(ref, port):
