@@ -12,9 +12,11 @@ script), builds its four-step kernel and prints one JSON line with:
   launches (``device_us``), and the blocks per (limb, polynomial) the tree
   picks (``split``; null for trees that have one block per pair);
 * ``wide``: the same at the logN 15 and 16 shapes of ``chip_smoke.py``'s
-  phase 2 (4 x 31 x 32768 and 2 x 62 x 65536, where a call is two
-  launches, one a step: ``device_us`` is per launch, ``launches_per_call``
-  says how many a call makes), for trees whose kernel has them;
+  phase 2 (4 x 31 x 32768, 2 x 62 x 65536 and 256 x 1 x 65536; ``split``
+  is the cluster size in trees that run these on clusters, ``device_us``
+  is per launch and ``launches_per_call`` says how many a call makes:
+  two in trees that run one launch a step), for trees whose kernel has
+  them;
 * ``path``: the same for every distinct call of one BGV request
   (``chip_smoke.bgv_server``: encrypt, ``rescale(mul_relin)``, decrypt),
   with its shape, limb offset and direction;
@@ -141,15 +143,16 @@ def main() -> int:
     bulk = {("inverse" if inv else "forward"): measure(ring._mxu, x, 0, inv, False)
             for inv in (False, True)}
     wide = []
-    for polys, log_n, log_qp in (chip_smoke.WIDE_SHAPES
-                                 if ntt_mxu.MAX_N >= 1 << 16 else ()):
+    for polys, log_n, log_qp, limbs in (chip_smoke.WIDE_SHAPES
+                                        if ntt_mxu.MAX_N >= 1 << 16 else ()):
         lit_w = bgv_tpu_params(log_n, log_qp)
         qw, pw = gen_moduli(log_n, 2 << log_n, lit_w.log_q, lit_w.log_p)
-        ring_w = Ring(1 << log_n, qw + pw, device="cuda")
-        xw = torch.randint(0, 1 << 62, (polys, len(qw + pw), ring_w.n),
+        ring_w = Ring(1 << log_n, (qw + pw)[:limbs], device="cuda")
+        xw = torch.randint(0, 1 << 62, (polys, len(ring_w.moduli), ring_w.n),
                            generator=gen, device="cuda") % ring_w.q
         wide += [measure(ring_w._mxu, xw, 0, inv, False) for inv in (False, True)]
         del ring_w, xw
+        torch.cuda.empty_cache()
 
     params, a, b, serve, step_of = chip_smoke.bgv_server()
     (ca, cb, got), calls, _ = chip_smoke.record_calls(ntt_mxu, "four_step_cuda", serve)

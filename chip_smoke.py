@@ -13,10 +13,11 @@ Phases (one line each; any failure exits non-zero before the result):
    the identity; time kernel and plain version with CUDA events:
    the four-step kernel (``ntt_mxu.cu``) at 4 polynomials x 15 limbs x
    16384 on the BGV chain, with the blocks per (limb, polynomial) it picks
-   there (``split``), at logN 12 and 13 on 2 x 3 x N, and at its two
-   launches a call of logN 15 and 16, 4 x 31 x 32768 and 2 x 62 x 65536
-   on phase 17's chains (each shape also timed, in the rows'
-   ``shapes``); the u32 kernel
+   there (``split``), at logN 12 and 13 on 2 x 3 x N, and on its
+   thread-block clusters at logN 15 and 16, 4 x 31 x 32768 and
+   2 x 62 x 65536 on phase 17's chains and 256 x 1 x 65536 (the
+   benchmark's logN-16 field: 256 polynomials on one prime), each shape
+   also timed beside its bound, in the rows' ``shapes``; the u32 kernel
    (``ntt_pallas.cu``) at the blind rotation's own shape, 2 x 1 x 1024,
    and at 4 x 15 x 16384 on 15 alternating 29-bit primes; at 2 x 1 x 1024
    also the u32 kernel's host time per call (wall clock over 1000
@@ -229,7 +230,7 @@ Phases (one line each; any failure exits non-zero before the result):
    full-degree bootstrap less a bit, with the count of its slots 4 bits
    or more under its mean; no kernel launch; peak device memory;
 17. the BGV and CKKS steps at Lattigo's two largest ring degrees, every
-   ring on the four-step kernel's two launches a call: 17a phase 3's
+   ring on the four-step kernel's clusters: 17a phase 3's
    request path at ``bgv_tpu_params(15, 880)`` (N = 32768, 29 + 2 primes
    < 2^29, T = 65537; exact mod T), 17b phase 5's at
    ``ckks_tpu_params(16, 1761)`` (N = 65536, 60 + 2 primes, 6 Galois
@@ -510,19 +511,21 @@ def phase_kernels():
     del ring, eng, x, y
     for shape in wide_kernel_shapes(gen, rows):
         print(f"phase 2 ntt_mxu at logN {shape['log_n']} ({shape['launches_per_call']} "
-              f"launches a call, one a step): bit-equal to the plain version (lazy, "
+              f"launch a call, on clusters): bit-equal to the plain version (lazy, "
               f"not lazy, limb offset 5), NTT->INTT identity; at "
               f"{'x'.join(map(str, shape['shape']))}: " + ", ".join(
-                  f"{d} {shape[d]['ms']:.4f} ms with split {shape[d]['split']} (plain "
+                  f"{d} {shape[d]['ms']:.4f} ms with cluster {shape[d]['split']} (plain "
                   f"{shape[d]['plain_ms']:.4f} ms, bound {shape[d]['bound_ms']:.4f} ms "
                   f"by {shape[d]['bound_by']})" for d in ("forward", "inverse")))
     return rows
 
 
-# the four-step kernel's logN 15-16 shapes (one launch a step): phase 17's
+# the four-step kernel's logN 15-16 shapes (its clusters): phase 17's
 # chains, bgv_tpu_params(15, 880) (31 primes) and ckks_tpu_params(16, 1761)
-# (62 primes), at (polynomials, log_n, log_qp)
-WIDE_SHAPES = ((BATCH, 15, 880), (2, 16, 1761))
+# (62 primes), and the benchmark's logN-16 field, 256 polynomials on one
+# prime (the first of the latter), at (polynomials, log_n, log_qp, limbs
+# of the input: None for all)
+WIDE_SHAPES = ((BATCH, 15, 880, None), (2, 16, 1761, None), (256, 16, 1761, 1))
 
 
 def wide_kernel_shapes(gen, rows) -> list[dict]:
@@ -537,14 +540,20 @@ def wide_kernel_shapes(gen, rows) -> list[dict]:
     from lattigo_tpu_torch.rlwe.params import gen_moduli
 
     out = []
-    for polys, log_n, log_qp in WIDE_SHAPES:
-        lit = bgv_tpu_params(log_n, log_qp)
-        q, p = gen_moduli(log_n, 2 << log_n, lit.log_q, lit.log_p)
-        ring = Ring(1 << log_n, q + p, device="cuda")
+    rings = {}
+    for polys, log_n, log_qp, limbs in WIDE_SHAPES:
+        if (log_n, log_qp) not in rings:
+            rings.clear()
+            torch.cuda.empty_cache()
+            lit = bgv_tpu_params(log_n, log_qp)
+            q, p = gen_moduli(log_n, 2 << log_n, lit.log_q, lit.log_p)
+            rings[log_n, log_qp] = Ring(1 << log_n, q + p, device="cuda")
+        ring = rings[log_n, log_qp]
         check(ring.ntt_engine == "mxu-cuda", f"logN={log_n} on {ring.ntt_engine}")
         eng = ring._mxu
-        x = torch.randint(0, 1 << 62, (polys, len(q + p), ring.n), generator=gen,
-                          device="cuda") % ring.q
+        limbs = limbs or len(ring.moduli)
+        x = torch.randint(0, 1 << 62, (polys, limbs, ring.n), generator=gen,
+                          device="cuda") % ring.q[:limbs]
         res = dict(log_n=log_n, shape=list(x.shape), launches_per_call=eng.launches_per_call)
         for r in rows:
             inverse = r["name"].endswith("inverse")
@@ -555,13 +564,14 @@ def wide_kernel_shapes(gen, rows) -> list[dict]:
                 err = max(err, int((got - want).abs().max()))
                 check(torch.equal(got, want), f"{r['name']} logN={log_n} lazy={lazy}: "
                       "kernel != plain")
-                check(bool((got < (2 if lazy else 1) * ring.q).all()),
+                check(bool((got < (2 if lazy else 1) * ring.q[:limbs]).all()),
                       f"{r['name']} logN={log_n} lazy={lazy}: output out of range")
-            i = 5
-            xi = x[:, i:i + 1].contiguous()
+            i = 5                      # limb 5 of the input, or its one limb there
+            xi = x[:, i:i + 1].contiguous() if limbs > i else x
             got = ntt_mxu.four_step_cuda(eng, xi, i, inverse, False)
             want = ntt_mxu.four_step_plain(eng, xi, i, inverse, False)
-            full = ntt_mxu.four_step_cuda(eng, x, 0, inverse, False)[:, i:i + 1]
+            full = (ntt_mxu.four_step_cuda(eng, x, 0, inverse, False)[:, i:i + 1]
+                    if limbs > i else got)
             check(torch.equal(got, want) and torch.equal(got, full),
                   f"{r['name']} logN={log_n} at limb offset {i}: kernel != plain")
             r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -570,16 +580,18 @@ def wide_kernel_shapes(gen, rows) -> list[dict]:
             bound_ms, bound_by = four_step_bound(eng, tuple(x.shape))
             res["inverse" if inverse else "forward"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                split=eng.split_for(polys * len(q + p), inverse), max_abs_err=err)
-        check(torch.equal(ring.intt(ring.ntt(x)), x),
-              f"logN={log_n}: NTT then INTT is not the identity")
+                split=eng.split_for(polys * limbs, inverse), max_abs_err=err)
+        if limbs == len(ring.moduli):
+            check(torch.equal(ring.intt(ring.ntt(x)), x),
+                  f"logN={log_n}: NTT then INTT is not the identity")
         for r in rows:
             d = res["inverse" if r["name"].endswith("inverse") else "forward"]
             r.setdefault("shapes", []).append(
                 dict(shape=res["shape"], launches_per_call=eng.launches_per_call, **d))
         out.append(res)
         del ring, eng, x
-        torch.cuda.empty_cache()
+    rings.clear()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -771,7 +783,7 @@ def busy_text(wall_us: float, dev: dict) -> str:
             f"{max(0.0, 1 - total / wall_us):.3f})")
 
 
-def profile_step(step, kernel: str = "ntt_mxu_kernel",
+def profile_step(step, kernel: str = "ntt_mxu_",
                  host: bool = True) -> tuple[str, dict]:
     """Device time of one step by kernel, and the device's idle share of the
     step's wall time; ``kernel`` names the family whose share is reported
@@ -785,7 +797,7 @@ def profile_step(step, kernel: str = "ntt_mxu_kernel",
     ntt = sum(v for v, _ in family.values())
     ntt_n = sum(n for _, n in family.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:3]
-    return (busy_text(wall_us, dev) + f", {kernel}s {ntt:.0f} us in {ntt_n} "
+    return (busy_text(wall_us, dev) + f", {kernel}* kernels {ntt:.0f} us in {ntt_n} "
             f"launches ({ntt / total:.3f} of device time); top: " + "; ".join(
                 f"{k[:50]} {v:.0f} us" for k, (v, _) in top)), family
 

@@ -111,7 +111,7 @@ def gate_kat(device) -> dict:
 def engine_chains(full: bool = False) -> list[tuple[str, int, list[int]]]:
     """(engine the ring must take, logN, primes below 2^b): the four-step
     kernel at logN 13-16 on 28-bit primes (its fused launch at 13-14, its
-    two launches a call at 15-16); the u32 kernel at logN 10 and 15 on
+    thread-block clusters at 15-16); the u32 kernel at logN 10 and 15 on
     30-bit primes; the u64 four-step engine on 50-bit primes at logN 13 and
     16 and a mixed 25 / 50 / 61-bit chain at logN 15 (``--full``: 60-bit at
     logN 14 and 16 too). ``tpu_gate.py`` runs its engines on these prime

@@ -19,13 +19,16 @@ Two implementations of the same function live here:
 * :func:`four_step_plain`: plain torch. Its contractions are float64
   matmuls, exact because every partial sum stays below 2^24, so it runs on
   the CPU and on CUDA alike;
-* the CUDA kernel ``csrc/ntt_mxu.cu``, launched by :func:`four_step_cuda`.
-  Its products run on int8 tensor cores; it reads the weight digits in
-  the order of its ``mma`` A fragments (:func:`mma_fragment_order`), and
-  splits each (limb, polynomial) over S blocks that never exchange data
-  (:meth:`NTTMxu.split_for`). Up to N = 2^14 (:data:`FUSED_MAX_N`) a call
-  is one launch; at N = 2^15 and 2^16 it is two, one a step, step 1's
-  digits passing through an int8 scratch tensor of 4N bytes a row.
+* the CUDA kernel ``csrc/ntt_mxu.cu``, launched by :func:`four_step_cuda`,
+  one launch a call. Its products run on int8 tensor cores. Up to
+  N = 2^14 (:data:`FUSED_MAX_N`) it reads the weight digits in the order
+  of its ``mma`` A fragments (:func:`mma_fragment_order`) and splits each
+  (limb, polynomial) over S blocks that never exchange data; at N = 2^15
+  and 2^16 a thread-block cluster of S blocks takes one limb and
+  S·2^14/N polynomials of it, reads the weights as 16 KB ``wgmma`` tiles
+  (:func:`wgmma_tile_order`) multicast to the cluster, and passes step
+  1's digits between its blocks in shared memory (:meth:`NTTMxu.split_for`
+  picks S).
 
 :class:`NTTMxu` sends a CPU tensor to the plain version and a CUDA tensor
 to the kernel; there is no fallback between them. Requires q < 2^29 and
@@ -49,21 +52,26 @@ from lattigo_tpu_torch.ring.ntt_pallas import mred_lazy32 as _mred_lazy32
 MAX_Q_BITS = 29
 MIN_N = 4096
 MAX_N = 1 << 16
-#: Largest N whose call is one fused launch; above it, one launch a step.
+#: Largest N whose call runs on independent blocks; above it, on clusters.
 FUSED_MAX_N = 1 << 14
 M8 = 0xFF
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
-#: Splits of one (limb, polynomial) over blocks that the kernel has: all
-#: of them up to FUSED_MAX_N, from 2 on above it.
+#: Splits of one (limb, polynomial) over blocks that the kernel has up to
+#: FUSED_MAX_N; above it, its cluster sizes (those of at least N / 2^14
+#: blocks: a block holds 64 KB of digits a step).
 SPLITS = (1, 2, 4, 8)
-STEP_SPLITS = (2, 4, 8)
+CLUSTER_SIZES = (2, 4, 8)
 #: Shared memory an H100 SM gives its blocks, and what it keeps per block.
 SMEM_PER_SM = 228 * 1024
 SMEM_RESERVED_PER_BLOCK = 1024
+#: A weight tile of the cluster kernel, and its block's shared memory: two
+#: 64 KB digit slabs, a ring of 6 tiles and its 12 mbarriers.
+TILE_BYTES = 16384
+CLUSTER_SMEM = 2 * 65536 + 6 * TILE_BYTES + 12 * 8
 
-#: Launch counts of the CUDA kernel, by direction. Each launch adds one (a
-#: call at N > FUSED_MAX_N launches twice); the plain version adds nothing.
+#: Launch counts of the CUDA kernel, by direction. Each launch (one a
+#: call) adds one; the plain version adds nothing.
 LAUNCHES = {"forward": 0, "inverse": 0}
 
 
@@ -218,15 +226,30 @@ def mma_fragment_order(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(v.transpose(perm)).reshape(*lead, m * k)
 
 
+def wgmma_tile_order(w: np.ndarray) -> np.ndarray:
+    """int8 [..., 4A, 4A] (A = 128 or 256) -> [..., 16 A²] in the order the
+    cluster kernel copies its weight tiles: [8 jobs][4A/KC tiles] of
+    :data:`TILE_BYTES` each, KC = 2·TILE_BYTES / A bytes of K. Job j holds
+    the rows s·A + j·A/8 + a (plane s, a < A/8) as tile rows n = s·A/8 + a,
+    in wgmma's K-major layout without swizzle: [n / 8][KC / 16 core
+    columns][n % 8][16 bytes]."""
+    *lead, m, k = w.shape
+    a = m // 4
+    aj, kc = a // 8, 2 * TILE_BYTES // a
+    v = w.reshape(*lead, 4, 8, aj // 8, 8, k // kc, kc // 16, 16)
+    n = len(lead)                 # s, job, n8, row, tile, core, byte
+    perm = [*range(n), *(n + i for i in (1, 4, 0, 2, 5, 3, 6))]
+    return np.ascontiguousarray(v.transpose(perm)).reshape(*lead, m * k)
+
+
 def kernel_smem(rr: int, cc: int, split: int, inverse: bool) -> int:
-    """Shared-memory bytes of one block of ``csrc/ntt_mxu.cu``, rows padded
-    to 16 mod 128 bytes. Up to :data:`FUSED_MAX_N` (its ``Layout``): the
-    input's digit planes and 1/split of step 1's. Above (``StepLayout``,
-    the larger of the two steps, the same in both directions): 1/split of
-    a step's B columns, each with its 4R or 4C digit bytes."""
+    """Shared-memory bytes of one block of ``csrc/ntt_mxu.cu``. Up to
+    :data:`FUSED_MAX_N` (its ``Layout``, rows padded to 16 mod 128 bytes):
+    the input's digit planes and 1/split of step 1's. Above: the cluster
+    kernel's :data:`CLUSTER_SMEM` at every cluster size."""
     ldr, ldc = 4 * rr + 16, 4 * cc + 16
     if rr * cc > FUSED_MAX_N:
-        return max(cc // split * ldr, rr // split * ldc)
+        return CLUSTER_SMEM
     if inverse:
         return rr * ldc + cc // split * ldr
     return cc * ldr + rr // split * ldc
@@ -324,24 +347,26 @@ class _Binding:
 
     def __init__(self, eng: "NTTMxu"):
         fn = build.load("ntt_mxu").ntt_mxu_launch
-        fn.argtypes = [_ptr] * 4 + [_int] * 5 + [_ptr]
+        fn.argtypes = [_ptr] * 3 + [_int] * 5 + [_ptr]
         fn.restype = _int
         self.fn = fn
         self.device = eng.device.index
+        w1f, w2f, w1i, w2i = eng.kernel_tables
         self.engine = _Engine(
-            eng.consts.data_ptr(), eng.w1f_mma.data_ptr(), eng.tf.data_ptr(),
-            eng.w2f_mma.data_ptr(), eng.w1i_mma.data_ptr(),
-            eng.ti_t.data_ptr(), eng.w2i_mma.data_ptr(), eng.logn, self.device)
+            eng.consts.data_ptr(), w1f.data_ptr(), eng.tf.data_ptr(),
+            w2f.data_ptr(), w1i.data_ptr(), eng.ti_t.data_ptr(),
+            w2i.data_ptr(), eng.logn, self.device)
         self.ptr = ctypes.addressof(self.engine)
 
 
 def four_step_cuda(eng: "NTTMxu", x, limb_lo: int, inverse: bool,
                    lazy: bool, split: int | None = None):
     """Launch ``csrc/ntt_mxu.cu`` on x int64[..., l, N] (CUDA, contiguous).
-    ``split`` forces the number of blocks per (limb, polynomial), for tests
-    and measurements; by default :meth:`NTTMxu.split_for` picks it. The
-    kernel makes ``x.device`` current for its launch when it is not, on
-    that device's current stream."""
+    ``split`` forces the number of blocks per (limb, polynomial), or above
+    :data:`FUSED_MAX_N` the cluster size, for tests and measurements; by
+    default :meth:`NTTMxu.split_for` picks it. The kernel makes
+    ``x.device`` current for its launch when it is not, on that device's
+    current stream."""
     if x.dtype != torch.int64:
         raise TypeError(f"ntt_mxu kernel takes int64 residues, got {x.dtype}")
     if x.device != eng.device:
@@ -363,16 +388,12 @@ def four_step_cuda(eng: "NTTMxu", x, limb_lo: int, inverse: bool,
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    # step 1's digits, 4N bytes a row, when the call runs as two launches
-    mid = (torch.empty(rows, 4 * eng.n, dtype=torch.int8, device=x.device)
-           if eng.launches_per_call == 2 else None)
     k = eng._binding
-    err = k.fn(x.data_ptr(), None if mid is None else mid.data_ptr(),
-               out.data_ptr(), k.ptr, inverse | lazy << 1, rows, l, limb_lo,
-               split, torch.cuda.current_stream(k.device).cuda_stream)
+    err = k.fn(x.data_ptr(), out.data_ptr(), k.ptr, inverse | lazy << 1, rows,
+               l, limb_lo, split, torch.cuda.current_stream(k.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ntt_mxu kernel launch failed: CUDA error {err}")
-    LAUNCHES["inverse" if inverse else "forward"] += eng.launches_per_call
+    LAUNCHES["inverse" if inverse else "forward"] += 1
     return out
 
 
@@ -396,9 +417,10 @@ class NTTMxu:
     transposed so every output's contraction is contiguous), ``w1i_t``
     [L, 4C, 4C] (W1i transposed), ``w2i`` [L, 4R, 4R] — and the twiddles
     int32 ``tf`` [L, R, C] and ``ti_t`` [L, C, R] (TI transposed). The
-    kernel reads the four weight tables in :func:`mma_fragment_order`:
-    ``w1f_mma``, ``w2f_mma`` (of ``w2f_t``), ``w1i_mma`` (of ``w1i_t``)
-    and ``w2i_mma``, int8 [L, 16 A²].
+    kernel reads the four weight tables, those of ``w1f``, ``w2f_t``,
+    ``w1i_t`` and ``w2i``, in its own order (``kernel_tables``, int8
+    [L, 16 A²]): up to :data:`FUSED_MAX_N` in :func:`mma_fragment_order`,
+    above it in :func:`wgmma_tile_order`.
     """
 
     def __init__(self, n: int, moduli: list[int], psis: list[int], device):
@@ -411,10 +433,11 @@ class NTTMxu:
         self.logn = n.bit_length() - 1
         self.cc = max(128, 1 << (self.logn // 2))
         self.rr = n // self.cc
-        #: kernel launches a call (one a step above FUSED_MAX_N) and the
-        #: splits the kernel has for this N
-        self.launches_per_call = 1 if n <= FUSED_MAX_N else 2
-        self.splits = SPLITS if n <= FUSED_MAX_N else STEP_SPLITS
+        #: kernel launches a call, and the splits (cluster sizes above
+        #: FUSED_MAX_N) the kernel has for this N
+        self.launches_per_call = 1
+        self.splits = (SPLITS if n <= FUSED_MAX_N
+                       else tuple(s for s in CLUSTER_SIZES if s * (1 << 14) >= n))
         packs = [gen_mxu_tables(n, self.rr, self.cc, psi, q)
                  for psi, q in zip(psis, moduli)]
 
@@ -430,10 +453,9 @@ class NTTMxu:
                    "w1i_t": stack("w1i", True), "w2i": stack("w2i")}
         self.w1f, self.w2f_t = dev(weights["w1f"]), dev(weights["w2f_t"])
         self.w1i_t, self.w2i = dev(weights["w1i_t"]), dev(weights["w2i"])
-        self.w1f_mma = dev(mma_fragment_order(weights["w1f"]))
-        self.w2f_mma = dev(mma_fragment_order(weights["w2f_t"]))
-        self.w1i_mma = dev(mma_fragment_order(weights["w1i_t"]))
-        self.w2i_mma = dev(mma_fragment_order(weights["w2i"]))
+        order = mma_fragment_order if n <= FUSED_MAX_N else wgmma_tile_order
+        self.kernel_tables = tuple(dev(order(weights[key]))
+                                   for key in ("w1f", "w2f_t", "w1i_t", "w2i"))
         self.tf = dev(stack("tf"), _i32)
         self.ti_t = dev(stack("ti", True), _i32)
         self._split_range = {inv: (self.min_split(inv), self.max_split(inv))
@@ -441,14 +463,17 @@ class NTTMxu:
 
     def max_split(self, inverse: bool) -> int:
         """Most blocks per (limb, polynomial): each needs a 16-row slab of
-        the split dimension (t1 of R forward, j2 of C inverse; above
-        FUSED_MAX_N, every step's slab is 16 columns or more at 8)."""
+        the split dimension (t1 of R forward, j2 of C inverse); above
+        FUSED_MAX_N, the largest cluster (every slab of a polynomial is
+        16 columns or more at 8)."""
         return min(self.splits[-1], (self.cc if inverse else self.rr) // 16)
 
     def min_split(self, inverse: bool) -> int:
         """Least blocks per (limb, polynomial) at which two blocks share an
-        SM (one block of the unsplit layout fills it alone at logN 14 and
-        15, and at logN 16 so does one of split 2)."""
+        SM (one block of the unsplit layout fills it alone at logN 14);
+        above FUSED_MAX_N, the least cluster (one block an SM)."""
+        if self.n > FUSED_MAX_N:
+            return self.splits[0]
         for s in self.splits:
             if 2 * (kernel_smem(self.rr, self.cc, s, inverse)
                     + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM:
@@ -466,7 +491,14 @@ class NTTMxu:
     def split_for(self, rows: int, inverse: bool) -> int:
         """Blocks per (limb, polynomial) for a call on ``rows`` of them:
         the least S at which two blocks share an SM and every SM of the
-        card gets a block, at most :meth:`max_split`."""
+        card gets a block, at most :meth:`max_split`. Above FUSED_MAX_N,
+        the least cluster: its grid has the fewest blocks (limbs·⌈polys /
+        G⌉·S, G = S·2^14/N polynomials a cluster, is least there whatever
+        the call), and a larger one, though it reads the weight tiles fewer
+        times, waits on more blocks for each ring slot (slower on the
+        H100: PERF.md)."""
+        if self.n > FUSED_MAX_N:
+            return self.splits[0]
         return pick_split(rows, self._sm_count, *self._split_range[inverse])
 
     def _call(self, x, limb_lo: int, inverse: bool, lazy: bool):

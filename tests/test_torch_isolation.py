@@ -60,6 +60,7 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'bench_ntt_u32', 'bench_ntt_mxu',\n"
+        "           'bench_ntt_mxu_phases',\n"
         "           'gpu_gate', 'bench_bootstrap_torch', 'diag_bootstrap_stages_torch',\n"
         "           'validate_presets_torch', 'bench_scaling_torch']:\n"
         "    importlib.import_module(m)\n"

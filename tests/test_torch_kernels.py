@@ -55,16 +55,17 @@ def _residues(ring, batch, seed):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("lazy", [False, True])
 def test_four_step_kernel_matches_plain(cuda, logn, inverse, lazy):
-    """One launch a call up to logN 14, two (one a step) at logN 15-16."""
+    """One launch a call at every logN (on a thread-block cluster at logN
+    15-16)."""
     ring = _cached_ring(logn, cuda)
     assert ring.ntt_engine == "mxu-cuda"
     eng = ring._mxu
-    assert eng.launches_per_call == (1 if logn <= 14 else 2)
+    assert eng.launches_per_call == 1
     x = _residues(ring, (3,), logn)
     before = dict(ntt_mxu.LAUNCHES)
     got = ntt_mxu.four_step_cuda(eng, x, 0, inverse, lazy)
     key = "inverse" if inverse else "forward"
-    assert ntt_mxu.LAUNCHES[key] == before[key] + eng.launches_per_call
+    assert ntt_mxu.LAUNCHES[key] == before[key] + 1
     want = ntt_mxu.four_step_plain(eng, x, 0, inverse, lazy)
     assert torch.equal(got, want)
     assert bool((got < (2 if lazy else 1) * ring.q).all())
@@ -83,24 +84,26 @@ def test_four_step_kernel_roundtrip_and_offset(cuda, logn):
         assert torch.equal(ring.intt_single(i, yi), xi)
 
 
-# (polynomials, limbs): 1, 3, 8, 60 and 208 (limb, polynomial) rows, each
-# within the 10 limbs left above limb offset 5
-_GEOMETRY_ROWS = [(1, 1), (1, 3), (2, 4), (6, 10), (26, 8)]
+# (polynomials, limbs): 1, 3, 8, 60, 208, 21 and 64 (limb, polynomial) rows,
+# each within the 10 limbs left above limb offset 5; 7 and 64 polynomials a
+# limb leave a partial group of polynomials at some logN 15-16 cluster size
+_GEOMETRY_ROWS = [(1, 1), (1, 3), (2, 4), (6, 10), (26, 8), (7, 3), (64, 1)]
 _GEOMETRY = [(logn, inverse, split)
              for logn, rr in ((12, 32), (13, 64), (14, 128))
              for inverse in (False, True)
              for split in ntt_mxu.SPLITS
              if split <= min(8, (128 if inverse else rr) // 16)]
-_GEOMETRY += [(logn, inverse, split) for logn in (15, 16) for inverse in (False, True)
-              for split in ntt_mxu.STEP_SPLITS]
+_GEOMETRY += [(logn, inverse, size) for logn in (15, 16) for inverse in (False, True)
+              for size in ntt_mxu.CLUSTER_SIZES if size << 14 >= 1 << logn]
 
 
 @pytest.mark.parametrize("logn, inverse, split", _GEOMETRY)
 def test_four_step_kernel_geometry(cuda, logn, inverse, split):
-    """Every split the kernel has, at row counts from 1 to 208, limb
-    offsets 0 and 5, lazy and not, on inputs whose low word sits at the
-    edges 0, q-1, 2q-1, 4q-1 and 2^32-1 (the kernel reads the low 32 bits
-    and reduces them on entry), bit-equal to the plain version."""
+    """Every split (every cluster size at logN 15-16) the kernel has, at
+    row counts from 1 to 208, limb offsets 0 and 5, lazy and not, on inputs
+    whose low word sits at the edges 0, q-1, 2q-1, 4q-1 and 2^32-1 (the
+    kernel reads the low 32 bits and reduces them on entry), bit-equal to
+    the plain version."""
     ring = _cached_ring(logn, cuda)
     eng = ring._mxu
     assert split in eng.splits and split <= eng.max_split(inverse)
