@@ -20,8 +20,9 @@ reduced ring degree. The JSON line carries:
   bootstrap's input made from the previous output so that none can start
   early; ``spread`` is the slowest window over the fastest (a warning on
   stderr at ≥ 1.3);
-* ``stage_ms``: one more bootstrap timed by stage through its ``on_stage``
-  hook: ScaleDown (with the encapsulation switches and ModUp), C2S, EvalMod
+* ``stage_ms``: one more bootstrap, the only one the program's tracer
+  (:mod:`lattigo_tpu_torch.trace`) runs for, timed by its stage spans:
+  ScaleDown (with the encapsulation switches and ModUp), C2S, EvalMod
   (both halves), S2C;
 * ``first_s`` (the first, untimed bootstrap, which builds the engines' host
   tables) and ``setup_s`` (parameters, keys and DFT matrices);
@@ -30,7 +31,8 @@ reduced ring degree. The JSON line carries:
 * ``peak_mib``: the device's peak allocated memory over the run (CUDA only).
 
 Times on the card come from CUDA events read after a synchronize; on the
-CPU from the host clock.
+CPU from the host clock. Under the tracer the card also reports each
+synchronizing call, which slows a stage the host paces.
 """
 
 from __future__ import annotations
@@ -44,36 +46,37 @@ from dataclasses import replace
 
 import torch
 
+from lattigo_tpu_torch import trace
 from lattigo_tpu_torch.device import resolve_device
 
-#: the stages of ``stage_ms``: (name, the ``on_stage`` marks that open and
-#: close it; "start" is the bootstrap's call)
-STAGES = (("ScaleDown", "start", "pre"), ("C2S", "pre", "c2s im"),
-          ("EvalMod", "c2s im", "mod1 im"), ("S2C", "mod1 im", "out"))
+#: the stages of ``stage_ms``: (name, the bootstrap's span)
+STAGES = (("ScaleDown", "btp.scaledown"), ("C2S", "btp.c2s"),
+          ("EvalMod", "btp.evalmod"), ("S2C", "btp.s2c"))
 SPREAD_WARN = 1.3
 
 
 class _Clock:
-    """Marks on the device's timeline: CUDA events on the card (read after
-    one synchronize), the host clock elsewhere."""
+    """A window on the device's timeline: CUDA events on the card (read
+    after one synchronize), the host clock elsewhere."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.marks = {}
+        self.t0 = self._now()
 
-    def mark(self, name: str) -> None:
+    def _now(self):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            self.marks[name] = ev
-        else:
-            self.marks[name] = time.perf_counter()
+            return ev
+        return time.perf_counter()
 
-    def ms(self, a: str, b: str) -> float:
+    def ms(self) -> float:
+        """ms from the clock's start to now."""
+        t1 = self._now()
         if self.cuda:
             torch.cuda.synchronize()
-            return self.marks[a].elapsed_time(self.marks[b])
-        return (self.marks[b] - self.marks[a]) * 1e3
+            return self.t0.elapsed_time(t1)
+        return (t1 - self.t0) * 1e3
 
 
 def _sync(device: torch.device) -> None:
@@ -136,24 +139,22 @@ def run(log_n: int = 13, batch: int = 1, preset: str | None = None,
     windows, iters = (1, 1) if once else (3, 3)
     times = []
     for _ in range(windows):
-        clock = _Clock(device)
         cur = ct
-        clock.mark("start")
+        clock = _Clock(device)
         for _ in range(iters):
             out = b.bootstrap(cur, keys)
             cur = ct.replace(value=ct.value + out.value.reshape(-1)[:1] * 0)
-        clock.mark("end")
-        times.append(clock.ms("start", "end") / 1e3 / iters / batch)
+        times.append(clock.ms() / 1e3 / iters / batch)
     per = statistics.median(times)
     spread = max(times) / min(times)
     if spread >= SPREAD_WARN:
         print(f"# warning: window spread {spread:.2f} >= {SPREAD_WARN}: rerun for "
               "a stable number", file=sys.stderr)
 
-    clock = _Clock(device)
-    clock.mark("start")
-    out = b.bootstrap(ct, keys, on_stage=lambda stage, _ct: clock.mark(stage))
-    stage_ms = {k: clock.ms(a, z) for k, a, z in STAGES}
+    trace.start(cuda)
+    out = b.bootstrap(ct, keys)
+    spans = trace.stop()["spans"]
+    stage_ms = {k: spans[name]["device_ms" if cuda else "host_ms"] for k, name in STAGES}
     out0 = out if batch == 1 else out.replace(value=out.value[0])
     worst, avg = bp.precision_bits(r["decode"](out0), v)
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if cuda else None

@@ -50,6 +50,7 @@ from lattigo_tpu_torch.circuits.mod1 import (
 )
 from lattigo_tpu_torch.ring import modops
 from lattigo_tpu_torch.rlwe.elements import Ciphertext
+from lattigo_tpu_torch.trace import span
 
 
 # Circuit orders (ref bootstrapping/parameters_literal.go:144 CircuitOrder):
@@ -367,28 +368,32 @@ class BootstrappingEvaluator:
         if slim:
             # slim order (ref DecodeThenModUp): decode first, so the
             # message sits in the coefficients before the modulus raise.
-            ct = self.slots_to_coeffs(ct)
+            with span("btp.s2c"):
+                ct = self.slots_to_coeffs(ct)
             mark("s2c", ct)
-        ct0 = self.scale_down(ct)
-        delta0 = Fraction(ct0.scale)
-        q0 = Fraction(p.q_moduli[0])
+        with span("btp.scaledown"):
+            ct0 = self.scale_down(ct)
+            delta0 = Fraction(ct0.scale)
+            q0 = Fraction(p.q_moduli[0])
 
-        self._debug("scale_down", ct0)
-        if keys is not None and keys.evk_dense_to_sparse is not None:
-            ct0 = ev.apply_evaluation_key(ct0, keys.evk_dense_to_sparse)
-        up = self.mod_up(ct0)
-        if keys is not None and keys.evk_sparse_to_dense is not None:
-            up = ev.apply_evaluation_key(up, keys.evk_sparse_to_dense)
+            self._debug("scale_down", ct0)
+            if keys is not None and keys.evk_dense_to_sparse is not None:
+                ct0 = ev.apply_evaluation_key(ct0, keys.evk_dense_to_sparse)
+            up = self.mod_up(ct0)
+            if keys is not None and keys.evk_sparse_to_dense is not None:
+                up = ev.apply_evaluation_key(up, keys.evk_sparse_to_dense)
         self._debug("mod_up", up)
         mark("pre", up)
-        ct_re, ct_im = self.coeffs_to_slots(up)
+        with span("btp.c2s"):
+            ct_re, ct_im = self.coeffs_to_slots(up)
         self._debug("coeffs_to_slots re", ct_re)
         self._debug("coeffs_to_slots im", ct_im)
         mark("c2s re", ct_re)
         mark("c2s im", ct_im)
-        ct_re = self.mod1.evaluate(ct_re, pre_mapped=True)
-        mark("mod1 re", ct_re)
-        ct_im = self.mod1.evaluate(ct_im, pre_mapped=True)
+        with span("btp.evalmod"):
+            ct_re = self.mod1.evaluate(ct_re, pre_mapped=True)
+            mark("mod1 re", ct_re)
+            ct_im = self.mod1.evaluate(ct_im, pre_mapped=True)
         mark("mod1 im", ct_im)
         self._debug("eval_mod re", ct_re)
         self._debug("eval_mod im", ct_im)
@@ -397,7 +402,8 @@ class BootstrappingEvaluator:
             # example step 6: Mul(imag, 1i); Add(real, imag)).
             out = ev.add(ct_re, ev.mul_by_i(ct_im))
         else:
-            out = self.dft.slots_to_coeffs(ct_re, ct_im)
+            with span("btp.s2c"):
+                out = self.dft.slots_to_coeffs(ct_re, ct_im)
         # undo the q0 relabel: poly = Δ'·m/q0 → scale = Δ'·Δ₀/q0
         out = out.replace(scale=Fraction(out.scale) * delta0 / q0)
         self._debug("slots_to_coeffs (final)", out)

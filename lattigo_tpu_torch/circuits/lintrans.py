@@ -32,6 +32,7 @@ from lattigo_tpu_torch.ring.ring import u64_tensor
 from lattigo_tpu_torch.ring.ringqp import QPPoly
 from lattigo_tpu_torch.rlwe.elements import Ciphertext
 from lattigo_tpu_torch.rlwe.evaluator import Evaluator as RlweEvaluator
+from lattigo_tpu_torch.trace import span
 
 
 def bsgs_split(diags: list[int], slots: int, log_bsgs_ratio: int = 0) -> int:
@@ -270,6 +271,10 @@ class LinTransEvaluator:
     def evaluate(self, ct: Ciphertext, lt: LinearTransformation) -> Ciphertext:
         """lt applied to the slots of ct (a batch on leading axes); the
         output scale is ct.scale·lt.scale (mod T for BGV)."""
+        with span("lintrans.evaluate"):
+            return self._evaluate(ct, lt)
+
+    def _evaluate(self, ct: Ciphertext, lt: LinearTransformation) -> Ciphertext:
         p = self.params
         rq, rp = p.ring_q, p.ring_p
         level = min(ct.level, lt.level_q)
@@ -344,10 +349,11 @@ class LinTransEvaluator:
             ext = (1,) * (dg.q.dim() + 1 - evq.dim())   # ct batch axes
             evq = evq.reshape(evq.shape[:1] + ext + evq.shape[1:])
             evp = evp.reshape(evp.shape[:1] + ext + evp.shape[1:])
-            accq = modops.mred_sum(dg.q[..., :, None, :, :], evq, qq, qq_inv,
-                                   qq_bhi, margin, rq.small)  # [G, ..., 2, l, N]
-            accp = modops.mred_sum(dg.p[..., :, None, :, :], evp, rp.q, rp.qinv,
-                                   rp.bred_hi, margin, rp.small)
+            with span("ks.mac"):
+                accq = modops.mred_sum(dg.q[..., :, None, :, :], evq, qq, qq_inv,
+                                       qq_bhi, margin, rq.small)  # [G, ..., 2, l, N]
+                accp = modops.mred_sum(dg.p[..., :, None, :, :], evp, rp.q, rp.qinv,
+                                       rp.bred_hi, margin, rp.small)
             del dg
             d0q = rq.add(accq[..., 0, :, :], T0q, level)
             d0p = rp.add(accp[..., 0, :, :], T0p)

@@ -28,6 +28,7 @@ import torch
 from lattigo_tpu_torch.ring import modops
 from lattigo_tpu_torch.ring.ntt_u64_mxu import _balanced_digits, _digits8
 from lattigo_tpu_torch.ring.ring import u64_tensor
+from lattigo_tpu_torch.trace import span
 
 _U64 = np.uint64
 
@@ -234,13 +235,14 @@ class BasisExtender:
         ``ntt_domain``, else coefficient domain."""
         rq = self.ring_q
         l = level_q + 1
-        if ntt_domain:
-            xp = self.ring_p.intt(xp)
-        lift = self.mod_up_p_to_q(xp, level_q, centered=True)
-        if ntt_domain:
-            lift = rq.ntt(lift, level=level_q)
-        diff = modops.sub_mod(xq, lift, rq.q[:l])
-        return modops.mred(diff, self.pinv_q[:l], rq.q[:l], rq.qinv[:l], rq.small)
+        with span("ks.moddown"):
+            if ntt_domain:
+                xp = self.ring_p.intt(xp)
+            lift = self.mod_up_p_to_q(xp, level_q, centered=True)
+            if ntt_domain:
+                lift = rq.ntt(lift, level=level_q)
+            diff = modops.sub_mod(xq, lift, rq.q[:l])
+            return modops.mred(diff, self.pinv_q[:l], rq.q[:l], rq.qinv[:l], rq.small)
 
 
 class Decomposer:

@@ -41,6 +41,7 @@ from lattigo_tpu_torch.device import resolve_device
 from lattigo_tpu_torch.ring import (modops, ntt as ntt_mod, ntt_ci, ntt_mxu, ntt_pallas,
                                     ntt_u64_mxu)
 from lattigo_tpu_torch.ring.modops import gen_bred_constant, gen_mred_constant
+from lattigo_tpu_torch.trace import span
 from lattigo_tpu_torch.utils.primes import primitive_nth_root
 
 STANDARD = "standard"
@@ -323,43 +324,47 @@ class Ring:
     # -- NTT ------------------------------------------------------------------
 
     def ntt(self, a, level: int | None = None, lazy: bool = False):
-        if self.ci:
-            return self._ntt_ci(a, slice(0, self._lvl(level) + 1), lazy)
-        if self._kernel is not None:
-            return self._kernel.ntt(a.contiguous(), lazy=lazy)
-        l = self._lvl(level) + 1
-        return ntt_mod.ntt(a, self.roots[:l], self.q[:l], self.qinv[:l],
-                           self.log_n, lazy=lazy, small=self.small)
+        with span("ring.ntt"):
+            if self.ci:
+                return self._ntt_ci(a, slice(0, self._lvl(level) + 1), lazy)
+            if self._kernel is not None:
+                return self._kernel.ntt(a.contiguous(), lazy=lazy)
+            l = self._lvl(level) + 1
+            return ntt_mod.ntt(a, self.roots[:l], self.q[:l], self.qinv[:l],
+                               self.log_n, lazy=lazy, small=self.small)
 
     def intt(self, a, level: int | None = None, lazy: bool = False):
-        if self.ci:
-            return self._intt_ci(a, slice(0, self._lvl(level) + 1), lazy)
-        if self._kernel is not None:
-            return self._kernel.intt(a.contiguous(), lazy=lazy)
-        l = self._lvl(level) + 1
-        return ntt_mod.intt(a, self.iroots[:l], self.ninv[:l], self.q[:l],
-                            self.qinv[:l], self.log_n, lazy=lazy,
-                            small=self.small)
+        with span("ring.ntt"):
+            if self.ci:
+                return self._intt_ci(a, slice(0, self._lvl(level) + 1), lazy)
+            if self._kernel is not None:
+                return self._kernel.intt(a.contiguous(), lazy=lazy)
+            l = self._lvl(level) + 1
+            return ntt_mod.intt(a, self.iroots[:l], self.ninv[:l], self.q[:l],
+                                self.qinv[:l], self.log_n, lazy=lazy,
+                                small=self.small)
 
     def ntt_single(self, i: int, a, lazy: bool = False):
         """NTT over subring i only; a has a singleton limb axis [..., 1, N]."""
-        if self.ci:
-            return self._ntt_ci(a, slice(i, i + 1), lazy)
-        if self._kernel is not None:
-            return self._kernel.ntt_single(i, a.contiguous(), lazy=lazy)
-        s = slice(i, i + 1)
-        return ntt_mod.ntt(a, self.roots[s], self.q[s], self.qinv[s],
-                           self.log_n, lazy=lazy, small=self.small)
+        with span("ring.ntt"):
+            if self.ci:
+                return self._ntt_ci(a, slice(i, i + 1), lazy)
+            if self._kernel is not None:
+                return self._kernel.ntt_single(i, a.contiguous(), lazy=lazy)
+            s = slice(i, i + 1)
+            return ntt_mod.ntt(a, self.roots[s], self.q[s], self.qinv[s],
+                               self.log_n, lazy=lazy, small=self.small)
 
     def intt_single(self, i: int, a, lazy: bool = False):
-        if self.ci:
-            return self._intt_ci(a, slice(i, i + 1), lazy)
-        if self._kernel is not None:
-            return self._kernel.intt_single(i, a.contiguous(), lazy=lazy)
-        s = slice(i, i + 1)
-        return ntt_mod.intt(a, self.iroots[s], self.ninv[s], self.q[s],
-                            self.qinv[s], self.log_n, lazy=lazy,
-                            small=self.small)
+        with span("ring.ntt"):
+            if self.ci:
+                return self._intt_ci(a, slice(i, i + 1), lazy)
+            if self._kernel is not None:
+                return self._kernel.intt_single(i, a.contiguous(), lazy=lazy)
+            s = slice(i, i + 1)
+            return ntt_mod.intt(a, self.iroots[s], self.ninv[s], self.q[s],
+                                self.qinv[s], self.log_n, lazy=lazy,
+                                small=self.small)
 
     def _ntt_ci(self, a, s: slice, lazy: bool):
         return ntt_ci.ntt_ci(a, self.ci_roots[s], self.ci_f_fwd[s], self.q[s],

@@ -23,6 +23,7 @@ from lattigo_tpu_torch.rlwe.keys import (
     EvaluationKeySet, GadgetCiphertext, RelinearizationKey,
 )
 from lattigo_tpu_torch.rlwe.params import Parameters
+from lattigo_tpu_torch.trace import span
 
 
 class Evaluator:
@@ -36,9 +37,10 @@ class Evaluator:
         """RNS-decompose an NTT poly int64[..., lq+1, N] into QP-extended
         digits: q [..., beta, lq+1, N], p [..., beta, LP, N], NTT plain."""
         p = self.params
-        coeff = p.ring_q.intt(c2_ntt, level_q)
-        yq, yp = p.decomposer.decompose_all(coeff, level_q)
-        return QPPoly(p.ring_q.ntt(yq, level_q), p.ring_p.ntt(yp))
+        with span("ks.modup"):
+            coeff = p.ring_q.intt(c2_ntt, level_q)
+            yq, yp = p.decomposer.decompose_all(coeff, level_q)
+            return QPPoly(p.ring_q.ntt(yq, level_q), p.ring_p.ntt(yp))
 
     def gadget_product_hoisted_lazy(self, digits: QPPoly,
                                     gadget: GadgetCiphertext,
@@ -55,11 +57,13 @@ class Evaluator:
             raise ValueError(f"evaluation key generated at level "
                              f"{evq.shape[-2] - 1} used at level {level_q}")
         margin = modops.margin_for(max(max(p.q_moduli[:lq]), max(p.p_moduli)))
-        return QPPoly(
-            modops.mred_sum(digits.q[..., :, None, :, :], evq[:beta, :, :lq, :],
-                            rq.q[:lq], rq.qinv[:lq], rq.bred_hi[:lq], margin, rq.small),
-            modops.mred_sum(digits.p[..., :, None, :, :], evp[:beta], rp.q,
-                            rp.qinv, rp.bred_hi, margin, rp.small))
+        with span("ks.mac"):
+            return QPPoly(
+                modops.mred_sum(digits.q[..., :, None, :, :], evq[:beta, :, :lq, :],
+                                rq.q[:lq], rq.qinv[:lq], rq.bred_hi[:lq], margin,
+                                rq.small),
+                modops.mred_sum(digits.p[..., :, None, :, :], evp[:beta], rp.q,
+                                rp.qinv, rp.bred_hi, margin, rp.small))
 
     def gadget_product_hoisted(self, digits: QPPoly, gadget: GadgetCiphertext,
                                level_q: int):
@@ -87,22 +91,24 @@ class Evaluator:
                              f"{evq.shape[-2] - 1} used at level {level_q}")
         max_dig = evq.shape[-4] // evq.shape[-2]
         rows = lq * max_dig
-        cx = rq.intt(c2_ntt, level_q)                # canonical, < 2^61
-        shifts = torch.arange(max_dig, device=cx.device) * w
-        digits = (cx[..., :, None, :] >> shifts[:, None]) & ((1 << w) - 1)
-        dflat = digits.reshape(digits.shape[:-3] + (rows, 1, digits.shape[-1]))
+        with span("ks.modup"):
+            cx = rq.intt(c2_ntt, level_q)            # canonical, < 2^61
+            shifts = torch.arange(max_dig, device=cx.device) * w
+            digits = (cx[..., :, None, :] >> shifts[:, None]) & ((1 << w) - 1)
+            dflat = digits.reshape(digits.shape[:-3] + (rows, 1, digits.shape[-1]))
         moduli = p.q_moduli[:lq] + p.p_moduli
         margin = modops.margin_for(max(moduli))
 
         def mac(ring, ev, limbs: int):
             """Σ_r NTT(digit_r) · ev_r over the ring's first ``limbs``."""
             q, bhi = ring.q[:limbs], ring.bred_hi[:limbs]
-            d = ring.ntt(dflat.expand(dflat.shape[:-2] + (limbs, dflat.shape[-1])),
-                         limbs - 1)
-            t = modops.mred_lazy(d[..., :, None, :, :], ev, q, ring.qinv[:limbs],
-                                 ring.small)
-            acc = modops.lazy_tree_sum(torch.movedim(t, -4, 0), q, bhi, margin)
-            return modops.bred_add(acc, q, bhi)
+            with span("ks.mac"):
+                d = ring.ntt(dflat.expand(dflat.shape[:-2] + (limbs, dflat.shape[-1])),
+                             limbs - 1)
+                t = modops.mred_lazy(d[..., :, None, :, :], ev, q, ring.qinv[:limbs],
+                                     ring.small)
+                acc = modops.lazy_tree_sum(torch.movedim(t, -4, 0), q, bhi, margin)
+                return modops.bred_add(acc, q, bhi)
 
         acc_q = mac(rq, evq[:rows, :, :lq, :], lq)
         if evp is None:

@@ -28,6 +28,7 @@ from lattigo_tpu_torch.rlwe.elements import (
 from lattigo_tpu_torch.rlwe.evaluator import Evaluator as RlweEvaluator
 from lattigo_tpu_torch.rlwe.keys import EvaluationKeySet
 from lattigo_tpu_torch.schemes.ckks.params import Parameters
+from lattigo_tpu_torch.trace import span
 
 
 def _quantise(c, scale: Fraction) -> tuple[int, int]:
@@ -198,9 +199,10 @@ class Evaluator(RlweEvaluator):
         if isinstance(op1, Plaintext):
             level = min(ct0.level, op1.level)
             l = level + 1
-            ptm = rq.mform(op1.value[..., :l, :], level)
-            v = modops.mred(ct0.value[..., :l, :], ptm[..., None, :, :],
-                            rq.q[:l], rq.qinv[:l], sm)
+            with span("ckks.mul"):
+                ptm = rq.mform(op1.value[..., :l, :], level)
+                v = modops.mred(ct0.value[..., :l, :], ptm[..., None, :, :],
+                                rq.q[:l], rq.qinv[:l], sm)
             return ct0.replace(value=v,
                                scale=Fraction(ct0.scale) * Fraction(op1.scale))
         ct1: Ciphertext = op1
@@ -223,7 +225,8 @@ class Evaluator(RlweEvaluator):
         return self.relinearize(out) if relin else out
 
     def mul_relin(self, ct0: Ciphertext, op1) -> Ciphertext:
-        return self.mul(ct0, op1, relin=True)
+        with span("ckks.mul_relin"):
+            return self.mul(ct0, op1, relin=True)
 
     def mul_then_add(self, ct0: Ciphertext, op1, acc: Ciphertext) -> Ciphertext:
         """acc + ct0·op1."""
@@ -245,8 +248,9 @@ class Evaluator(RlweEvaluator):
         level = ct.level
         if level < 1:
             raise ValueError("cannot rescale at level 0")
-        v = scaling.div_by_last_modulus(p.ring_q, ct.value, level,
-                                        ntt_domain=ct.is_ntt, round_div=True)
+        with span("ckks.rescale"):
+            v = scaling.div_by_last_modulus(p.ring_q, ct.value, level,
+                                            ntt_domain=ct.is_ntt, round_div=True)
         return ct.replace(value=v,
                           scale=Fraction(ct.scale) / Fraction(p.q_moduli[level]))
 

@@ -37,7 +37,7 @@ def test_port_imports_no_jax():
               "comparison", "inverse"):
         assert "lattigo_tpu_torch.circuits." + m in mods
     for m in ("ring.ntt_ci", "rlwe.ring_packing", "schemes.ckks.bridge",
-              "ring.ntt_u64_mxu", "native"):
+              "ring.ntt_u64_mxu", "native", "trace"):
         assert "lattigo_tpu_torch." + m in mods
     assert "lattigo_tpu_torch.utils.cosine" in mods
     assert "lattigo_tpu_torch.utils.minimax" in mods
