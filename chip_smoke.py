@@ -21,7 +21,12 @@ Phases (one line each; any failure exits non-zero before the result):
    (``ntt_pallas.cu``) at the blind rotation's own shape, 2 x 1 x 1024,
    and at 4 x 15 x 16384 on 15 alternating 29-bit primes; at 2 x 1 x 1024
    also the u32 kernel's host time per call (wall clock over 1000
-   back-to-back calls ending in one synchronize);
+   back-to-back calls ending in one synchronize); the u64 kernel
+   (``ntt_u64.cu``) at the benchmark's shapes (``U64_SHAPES``: 2 x 34 x
+   65536 on 56 / 45-bit primes, the rescale's ``intt_single`` of limb 33
+   on 16 polynomials, 4 x 17 x 32768 on 52 / 26-bit primes) from inputs in
+   [0, 2q), with two launches a call, beside its bound (bytes against the
+   butterflies' IMAD-class instructions);
 3. serve one batch of 4 requests on BGV ``bgv_tpu_params(14, 438)``
    (N = 16384, 13 + 2 primes < 2^29, T = 65537): encode + encrypt,
    ``rescale(mul_relin(a, b))``, decrypt + decode, every slot checked
@@ -86,11 +91,12 @@ Phases (one line each; any failure exits non-zero before the result):
    S2C, each ending in a synchronize), equal to the warm-up's output,
    decrypted, decoded and held at a precision floor set from the JAX
    package's full-degree result less a bit; the rings' NTT engine
-   (mxu64-plain, the u64 four-step engine of library matmuls: no kernel of
-   this repository runs here, and the kernels' launch counts over the
-   bootstrap must be 0); the output level and
-   scale; peak device memory; one EvalMod half profiled (device kernels,
-   busy us, idle share, the top three kernel families);
+   (u64-cuda, the u64 kernel ``csrc/ntt_u64.cu``, at logN 15; over the
+   bootstrap the four-step and u32 kernels' launch counts must be 0 and the
+   u64 kernel's above 0 in both directions);
+   the output level and scale; peak device memory; one EvalMod half
+   profiled (device kernels, busy us, idle share, the top three kernel
+   families);
 8. the remaining circuits, every earlier phase's tensors freed and the
    peak memory counter reset. 8a on BGV ``bgv_tpu_params(14, 438)``, a
    batch of 4: the exact Paterson-Stockmeyer ``BGVPolynomialEvaluator``
@@ -140,8 +146,8 @@ Phases (one line each; any failure exits non-zero before the result):
    ``evaluate_conjugate_invariant`` of two CI ciphertexts on the chain's
    CI twin at logN 14 (16384 real slots, its own secret and ring-swap
    keys); every output at worst >= 11.8 / mean >= 14.0 bits (phase 7's
-   floor less a bit), at or above the output level, with 0 kernel
-   launches (rings Q and P mxu64-plain, the CI ring ci-plain); ms of pack,
+   floor less a bit), at or above the output level, launching the u64
+   kernel alone (rings Q and P u64-cuda, the CI ring ci-plain); ms of pack,
    the bootstrap, unpack and the CI pair; peak device memory;
 10. keys on the wire, every earlier phase's tensors freed and the peak
    memory counter reset. 10a on BGV ``bgv_tpu_params(14, 438)``: a client
@@ -210,15 +216,15 @@ Phases (one line each; any failure exits non-zero before the result):
 14. the GPU gate (``gpu_gate.py``, ``lattigo_tpu_torch.gate``): its four
    gates on the card, the launch counts zeroed before and read after, every
    distinct kernel call held against the plain version once more, and each
-   of the four kernel bodies launched;
+   kernel (four-step, u32, u64) launched in both directions;
 15. the bootstrap driver (``bench_bootstrap_torch.py --preset
    N15QP768_H192_H32 --once``): seconds a bootstrap and ms per stage from
    CUDA events, set-up and first-bootstrap seconds, the precision at phase
-   7's floor, peak device memory and the driver's JSON line; no kernel
-   launch;
+   7's floor, peak device memory and the driver's JSON line; launches of
+   the u64 kernel alone;
 16. the comparison and inverse circuits on the real bootstrapper at the
    published ``N16QP1546_H192_H32``, full logN 16 (2^15 slots, 25 Q
-   primes on the u64 four-step engine, 5 P primes on radix-2): its keys
+   primes on the u64 kernel, 5 P primes on radix-2): its keys
    from ``prepare_recipe``, a ``CircuitBootstrapper`` over the
    ``BootstrappingEvaluator``; one X4 sign stage (``ComparisonEvaluator``)
    on x ∈ ±[2^-8, 1] from level 2, which bootstraps first, and the
@@ -228,7 +234,8 @@ Phases (one line each; any failure exits non-zero before the result):
    slot: from the next hold), its ms, its bootstraps' ms, output level;
    the sign stage's bootstrap alone held at the JAX package's own
    full-degree bootstrap less a bit, with the count of its slots 4 bits
-   or more under its mean; no kernel launch; peak device memory;
+   or more under its mean; launches of the u64 kernel alone; peak device
+   memory;
 17. the BGV and CKKS steps at Lattigo's two largest ring degrees, every
    ring on the four-step kernel's clusters: 17a phase 3's
    request path at ``bgv_tpu_params(15, 880)`` (N = 32768, 29 + 2 primes
@@ -254,9 +261,9 @@ Phases (one line each; any failure exits non-zero before the result):
    presets, each at the JAX package's CPU figures less a bit; 18c
    ``bench_scaling_torch.py``, 4 ranks sharing the card over gloo, a
    batch of 16 at CKKS logN 12: no byte on the dp axis, the gathered
-   result bit-equal to one process, every ring on ``mxu64-plain``; no
-   kernel launch on any of the three (18c's counted here and on the
-   ranks);
+   result bit-equal to one process, every ring on ``mxu64-plain``; 18a
+   launches the u64 kernel alone (its rings are phase 16's), 18b and 18c
+   no kernel (18c's counted here and on the ranks);
 19. the card's name and power limit as nvidia-smi gives them, the
    kernels' JSON line (the launches of phases 12–18 in
    ``scale_out_launches``, ``examples_launches``, ``gate_launches``,
@@ -365,23 +372,61 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+# the CUDA kernels: (module of lattigo_tpu_torch.ring and key of the launch
+# counts, prefix of its rows' names, prefix of its ``<fam>_cuda`` /
+# ``<fam>_plain`` functions)
+KERNELS = (("ntt_mxu", "ntt_mxu", "four_step"), ("ntt_pallas", "ntt_u32", "u32"),
+           ("ntt_u64", "ntt_u64", "u64"))
+
+
+def kernel_module(key: str):
+    import importlib
+    return importlib.import_module(f"lattigo_tpu_torch.ring.{key}")
+
+
+def row_kernel(name: str) -> str:
+    """The launch-count key of the kernel a row of the kernels line times."""
+    return next(key for key, prefix, _ in KERNELS if name.startswith(prefix))
+
+
 def launch_counts() -> dict:
-    """Both kernels' launch counts since their last reset."""
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
-    return {"ntt_mxu": dict(ntt_mxu.LAUNCHES), "ntt_pallas": dict(ntt_pallas.LAUNCHES)}
+    """Every kernel's launch counts since their last reset."""
+    return {key: dict(kernel_module(key).LAUNCHES) for key, _, _ in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
-    ntt_mxu.reset_launches()
-    ntt_pallas.reset_launches()
+    for key, _, _ in KERNELS:
+        kernel_module(key).reset_launches()
 
 
 def set_row_launches(rows, key: str, launches: dict) -> None:
-    """Each kernel row's ``key``: its family's count in its direction."""
+    """Each kernel row's ``key``: its kernel's count in its direction."""
     for r in rows:
-        fam = "ntt_mxu" if r["name"].startswith("ntt_mxu") else "ntt_pallas"
-        r[key] = launches[fam]["inverse" if r["name"].endswith("inverse") else "forward"]
+        r[key] = launches[row_kernel(r["name"])][
+            "inverse" if r["name"].endswith("inverse") else "forward"]
+
+
+def check_launches(launches: dict, where: str, u64: bool) -> None:
+    """Fail if the four-step or u32 kernel launched, or unless the u64
+    kernel launched in both directions when ``u64`` (the path's rings are
+    ``u64-cuda``) and in neither otherwise."""
+    check(all(v == 0 for key in ("ntt_mxu", "ntt_pallas")
+              for v in launches[key].values()),
+          f"{where}: the four-step or u32 kernel launched: {launches}")
+    ran = launches["ntt_u64"]
+    check(all(v > 0 for v in ran.values()) if u64 else not any(ran.values()),
+          f"{where}: u64 kernel launches {ran} on "
+          + ("u64-cuda rings" if u64 else "rings off the u64 kernel"))
+
+
+def mxu64_engine(ring) -> str:
+    """A ``mxu64`` ring's engine on the card (``u64-cuda`` at N = 2^15 and
+    2^16, ``mxu64-plain`` below); fails if the ring is on another engine."""
+    from lattigo_tpu_torch.ring.ring import engine_name
+    want = engine_name(ring.n, ring.moduli, "cuda")
+    check(want in ("u64-cuda", "mxu64-plain") and ring.ntt_engine == want,
+          f"a mxu64 ring at N={ring.n} on {ring.ntt_engine}, not {want}")
+    return want
 
 
 def host_us_per_call(fn, reps: int = 1000) -> float:
@@ -415,12 +460,15 @@ def cuda_ms(fn, reps: int) -> float:
 def phase_build():
     from lattigo_tpu_torch import build
     t0 = time.perf_counter()
-    logs = build.build(["ntt_mxu", "ntt_pallas", "xof"])
+    logs = build.build(["ntt_mxu", "ntt_pallas", "ntt_u64", "xof"])
     secs = time.perf_counter() - t0
     regs = sorted({ln.split("Used ")[1].split(",")[0] for log in logs.values()
                    for ln in log.splitlines() if "Used " in ln})
-    print(f"phase 1 build: ntt_mxu.cu, ntt_pallas.cu (nvcc) and xof.cpp (g++) "
-          f"in {secs:.2f} s (ptxas: {'; '.join(regs)})")
+    # a kernel's stack frame: its arrays in local memory, not registers
+    frames = {name: sorted({ln.split(",")[0].strip() for ln in log.splitlines()
+                            if "stack frame" in ln}) for name, log in logs.items()}
+    print(f"phase 1 build: ntt_mxu.cu, ntt_pallas.cu, ntt_u64.cu (nvcc) and xof.cpp "
+          f"(g++) in {secs:.2f} s (ptxas: {'; '.join(regs)}; {frames})")
 
 
 def four_step_bound(eng, shape) -> tuple[float, str]:
@@ -619,6 +667,42 @@ def record_calls(module, name: str, fn):
     finally:
         setattr(module, name, launch)
     return out, calls, launches
+
+
+def record_kernels(fn):
+    """Run fn() with every kernel's calls recorded (:func:`record_calls`):
+    (fn's result, {launch key: recorded calls}, {launch key: counts})."""
+    calls, counts = {}, {}
+    run = fn
+    for key, _, fam in KERNELS:
+        def run(inner=run, key=key, fam=fam):
+            out, calls[key], counts[key] = record_calls(kernel_module(key), f"{fam}_cuda",
+                                                        inner)
+            return out
+    return run(), calls, counts
+
+
+def hold_recorded(rows, calls: dict, where: str) -> tuple[int, int]:
+    """Each call :func:`record_kernels` recorded, once more against its
+    kernel's plain version; the rows' ``max_abs_err`` raised to what it
+    finds. Returns (calls held, max |err|)."""
+    import torch
+    held = err = 0
+    for key, prefix, fam in KERNELS:
+        module = kernel_module(key)
+        for eng, x, lo, inverse, lazy in calls[key].values():
+            got = getattr(module, f"{fam}_cuda")(eng, x, lo, inverse, lazy)
+            want = getattr(module, f"{fam}_plain")(eng, x, lo, inverse, lazy)
+            e = int((got - want).abs().max())
+            err = max(err, e)
+            name = prefix + ("_inverse" if inverse else "_forward")
+            for r in rows:
+                if r["name"] == name:
+                    r["max_abs_err"] = max(r["max_abs_err"], e)
+            check(torch.equal(got, want), f"{where}: {fam} kernel != plain at "
+                  f"{tuple(x.shape)} limb_lo={lo} inverse={inverse} lazy={lazy}")
+        held += len(calls[key])
+    return held, err
 
 
 def count_calls(module, name: str, fn):
@@ -1340,6 +1424,124 @@ def check_u32(ring, x, limb: int | None) -> int:
     return err
 
 
+# the u64 kernel's shapes, the benchmark's, as (name, logN, prime widths,
+# polynomials, limb offset of a single-limb call or None): a ciphertext of
+# the logN-16 step at level 33, the rescale's intt_single of its last limb
+# over 8 ciphertexts, a ciphertext of the bootstrap ring at logN 15
+U64_SHAPES = (("step", 16, (56,) + (45,) * 33, 2, None),
+              ("rescale", 16, (56,) + (45,) * 33, 16, 33),
+              ("btp", 15, (52,) + (26,) * 16, 4, None))
+# 32-bit IMAD-class instructions per u64 butterfly: the Montgomery
+# product's two 64 x 64 -> 128 high words and two low products
+U64_IMAD_PER_BUTTERFLY = 14
+
+
+def u64_times(shape) -> tuple[float, float]:
+    """Least milliseconds of one u64-kernel call on x int64[shape] by its
+    bytes (each residue read and written once as int64) and by its
+    operations (the butterflies' IMAD-class instructions, N/2 logN a row,
+    at the int32 peak)."""
+    n = shape[-1]
+    rows = math.prod(shape[:-1])
+    t_bytes = 16 * rows * n / HBM_BYTES_PER_S * 1e3
+    t_ops = (rows * n // 2 * (n.bit_length() - 1) * U64_IMAD_PER_BUTTERFLY
+             / INT32_OPS_PER_S * 1e3)
+    return t_bytes, t_ops
+
+
+def u64_bound(shape) -> tuple[float, str]:
+    """The larger of :func:`u64_times` and what it is bound by."""
+    t_bytes, t_ops = u64_times(shape)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def u64_ring(log_n: int, bits) -> "Ring":
+    """A ring on the card at N = 2^log_n with NTT-friendly primes of these
+    widths (the first below 2^bits of each width, then the next down)."""
+    from lattigo_tpu_torch.ring.ring import Ring
+    from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
+
+    n = 1 << log_n
+    gens = {b: NTTFriendlyPrimesGenerator(b, 2 * n) for b in set(bits)}
+    return Ring(n, [gens[b].next_downstream_prime() for b in bits], device="cuda")
+
+
+def phase_u64_kernels(rows):
+    """The u64 kernel at :data:`U64_SHAPES`: bit-equal to its plain version
+    (lazy and not) from inputs at the top of the contract, [0, 2q), with
+    outputs in range, through a limb offset, NTT then INTT the identity,
+    two launches a call; then kernel and plain version timed with CUDA
+    events beside the bound."""
+    import torch
+    from lattigo_tpu_torch.ring import ntt_u64
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = {}
+    for tag, log_n, bits, polys, single in U64_SHAPES:
+        ring = u64_ring(log_n, bits)
+        check(ring.ntt_engine == "u64-cuda", f"u64 {tag} ring on {ring.ntt_engine}")
+        eng, n = ring._u64, ring.n
+        lo = single or 0
+        q = ring.q[lo:lo + 1] if single is not None else ring.q
+        x = torch.randint(0, 1 << 62, (polys, q.shape[0], n), generator=gen,
+                          device="cuda") % (2 * q)
+        for inverse in (False, True):
+            d = "inverse" if inverse else "forward"
+            err = 0
+            for lazy in (False, True):
+                before = ntt_u64.LAUNCHES[d]
+                got = ntt_u64.u64_cuda(eng, x, lo, inverse, lazy)
+                check(ntt_u64.LAUNCHES[d] - before == ntt_u64.LAUNCHES_PER_CALL,
+                      f"u64 {tag} {d}: {ntt_u64.LAUNCHES[d] - before} launches a call")
+                want = ntt_u64.u64_plain(eng, x, lo, inverse, lazy)
+                err = max(err, int((got - want).abs().max()))
+                check(torch.equal(got, want), f"u64 {tag} {d} lazy={lazy}: kernel != plain")
+                check(bool((got < (2 if lazy else 1) * q).all()),
+                      f"u64 {tag} {d} lazy={lazy}: output out of range")
+                del got, want
+            if single is None:
+                i = 1                  # limb 1 alone through the limb offset
+                xi = x[:, i:i + 1].contiguous()
+                got = ntt_u64.u64_cuda(eng, xi, i, inverse, False)
+                full = ntt_u64.u64_cuda(eng, x, 0, inverse, False)[:, i:i + 1]
+                check(torch.equal(got, ntt_u64.u64_plain(eng, xi, i, inverse, False))
+                      and torch.equal(got, full), f"u64 {tag} {d} at limb offset {i}: "
+                      "kernel != plain or != the full call")
+            ms = cuda_ms(lambda: ntt_u64.u64_cuda(eng, x, lo, inverse, False), 20)
+            plain_ms = cuda_ms(lambda: ntt_u64.u64_plain(eng, x, lo, inverse, False), 3)
+            bound_ms, bound_by = u64_bound(tuple(x.shape))
+            shapes[tag, inverse] = dict(shape=list(x.shape), limb_lo=lo, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by, max_abs_err=err)
+        xc = x % q
+        y = ntt_u64.u64_cuda(eng, xc, lo, False, False)
+        check(torch.equal(ntt_u64.u64_cuda(eng, y, lo, True, False), xc),
+              f"u64 {tag}: NTT then INTT is not the identity")
+        del ring, eng, x, xc, y
+        torch.cuda.empty_cache()
+    out = []
+    for inverse, name in ((False, "ntt_u64_forward"), (True, "ntt_u64_inverse")):
+        main = shapes["step", inverse]
+        out.append(dict(
+            name=name, route="cuda", source="lattigo_tpu_torch/csrc/ntt_u64.cu",
+            replaces=None, launches=None,
+            max_abs_err=max(shapes[t[0], inverse]["max_abs_err"] for t in U64_SHAPES),
+            ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=None, shape=main["shape"],
+            launches_per_call=ntt_u64.LAUNCHES_PER_CALL,
+            shapes=[dict(name=t[0], **shapes[t[0], inverse]) for t in U64_SHAPES]))
+    print("phase 2 ntt_u64: bit-equal to the plain version (lazy, not lazy, inputs "
+          "in [0, 2q), limb offset 1 of each chain, single-limb calls at limb "
+          f"{sorted({t[4] for t in U64_SHAPES} - {None})}), NTT->INTT identity, "
+          f"{ntt_u64.LAUNCHES_PER_CALL} launches a call; " + "; ".join(
+              f"{r['name']} " + ", ".join(
+                  f"{s['name']} {'x'.join(map(str, s['shape']))} at limb {s['limb_lo']} "
+                  f"{s['ms']:.4f} ms (plain {s['plain_ms']:.4f} ms, bound "
+                  f"{s['bound_ms']:.4f} ms by {s['bound_by']})" for s in r["shapes"])
+              for r in out))
+    rows.extend(out)
+
+
 def phase_u32_kernels(rows):
     """The u32 kernel at the blind rotation's shape and at the bulk shape."""
     import torch
@@ -1526,18 +1728,19 @@ def profile_families(fn) -> str:
 class OpCounter:
     """Counts the aten ops torch dispatches (views included) while active,
     those dispatched inside an NTT engine of library code (the plain
-    radix-2 NTT / INTT, the u64 four-step engine), and that engine's calls
-    by name ("radix2", "mxu64")."""
+    radix-2 NTT / INTT, the u64 four-step engine, the u64 kernel's wrapper),
+    and that engine's calls by name ("radix2", "mxu64", "u64")."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
-        from lattigo_tpu_torch.ring import ntt as ntt_mod, ntt_u64_mxu
+        from lattigo_tpu_torch.ring import ntt as ntt_mod, ntt_u64, ntt_u64_mxu
         counter = self
         self.total = self.in_ntt = 0
-        self.calls = {"radix2": 0, "mxu64": 0}
+        self.calls = {"radix2": 0, "mxu64": 0, "u64": 0}
         self._depth = 0
         self._targets = [(ntt_mod, "ntt", "radix2"), (ntt_mod, "intt", "radix2"),
-                         (ntt_u64_mxu.NTTMxu64, "_apply", "mxu64")]
+                         (ntt_u64_mxu.NTTMxu64, "_apply", "mxu64"),
+                         (ntt_u64, "u64_cuda", "u64")]
         self._orig = [getattr(obj, name) for obj, name, _ in self._targets]
 
         class Mode(TorchDispatchMode):
@@ -1626,10 +1829,9 @@ def phase_bootstrap(rows, log_n: int | None = None):
 
     res = bootstrap_flow("cuda", log_n, timed)
     params, btp = res["params"], res["btp"]
-    engines = {name: ring.ntt_engine for name, ring in
+    engines = {name: mxu64_engine(ring) for name, ring in
                (("Q", params.ring_q), ("P", params.ring_p))}
-    for name, eng in engines.items():
-        check(eng == "mxu64-plain", f"bootstrap ring {name} on {eng}")
+    u64 = engines["Q"] == "u64-cuda"
     keys_mb = torch.cuda.max_memory_allocated() / 2**20
     resident_mb = torch.cuda.memory_allocated() / 2**20
 
@@ -1651,10 +1853,10 @@ def phase_bootstrap(rows, log_n: int | None = None):
     out = res["run"](mark)
     launches = launch_counts()
     set_row_launches(rows, "btp_launches", launches)
-    check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"a kernel launched on the mxu64-plain bootstrap: {launches}")
-    check(ops.calls["radix2"] == 0 and ops.calls["mxu64"] > 0,
-          f"the bootstrap's NTT calls {ops.calls}: radix-2 ran on mxu64 rings")
+    check_launches(launches, "phase 7", u64)
+    check(ops.calls["radix2"] == 0 and ops.calls["u64" if u64 else "mxu64"] > 0
+          and ops.calls["mxu64" if u64 else "u64"] == 0,
+          f"the bootstrap's NTT calls {ops.calls} on {engines['Q']} rings")
     t = {k: (v[0] - t0) * 1e3 for k, v in marks.items()}
     stage_ms = {"ScaleDown+encapsulation+ModUp": t["pre"],
                 "C2S": t["c2s im"] - t["pre"],
@@ -1827,7 +2029,7 @@ def phase_circuits(rows, log_n: int = LOG_N):
     import numpy as np
     import torch
     from lattigo_tpu_torch.circuits.minimax import MinimaxCompositeEvaluator, SIGN_X4_CHEBY
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    from lattigo_tpu_torch.ring import ntt_mxu
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1852,10 +2054,11 @@ def phase_circuits(rows, log_n: int = LOG_N):
     def main_path():
         return {name: run() for name, (run, _, _, _) in circuits.items()}
 
-    ntt_pallas.reset_launches()
+    reset_launch_counts()
     outs, calls, launches = record_calls(ntt_mxu, "four_step_cuda", main_path)
-    check(all(v == 0 for v in ntt_pallas.LAUNCHES.values()),
-          f"the u32 kernel launched in phase 8: {ntt_pallas.LAUNCHES}")
+    counts = launch_counts()
+    check(not any(v for key in ("ntt_pallas", "ntt_u64") for v in counts[key].values()),
+          f"the u32 or u64 kernel launched in phase 8: {counts}")
     results = {}
     for name, (_, chk, _, _) in circuits.items():
         results[name] = chk(outs[name])
@@ -1870,10 +2073,7 @@ def phase_circuits(rows, log_n: int = LOG_N):
     check(outs["bfv mul_scale_invariant x2"].level == circuits[
         "bfv mul_scale_invariant x2"][2], "mul_scale_invariant changed the level")
     mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
-    for r in rows:
-        counts = launches if r["name"].startswith("ntt_mxu") else ntt_pallas.LAUNCHES
-        r["circuits_launches"] = counts["inverse" if r["name"].endswith("inverse")
-                                        else "forward"]
+    set_row_launches(rows, "circuits_launches", counts)
     for r in mxu_rows:
         check(r["circuits_launches"] > 0, f"{r['name']} not launched in phase 8")
     launch = ntt_mxu.four_step_cuda
@@ -2096,7 +2296,7 @@ def ring_flow(device, log_n: int = LOG_N):
 
 def phase_ring_packing(rows, log_n: int = LOG_N):
     import torch
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    from lattigo_tpu_torch.ring import ntt_mxu
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2120,10 +2320,11 @@ def phase_ring_packing(rows, log_n: int = LOG_N):
     def main_path():
         return {name: run() for name, (run, _) in ops.items()}
 
-    ntt_pallas.reset_launches()
+    reset_launch_counts()
     outs, calls, launches = record_calls(ntt_mxu, "four_step_cuda", main_path)
-    check(all(v == 0 for v in ntt_pallas.LAUNCHES.values()),
-          f"the u32 kernel launched in phase 9a: {ntt_pallas.LAUNCHES}")
+    counts = launch_counts()
+    check(not any(v for key in ("ntt_pallas", "ntt_u64") for v in counts[key].values()),
+          f"the u32 or u64 kernel launched in phase 9a: {counts}")
     results = {}
     for name, (_, chk) in ops.items():
         results[name] = chk(outs[name])
@@ -2136,9 +2337,7 @@ def phase_ring_packing(rows, log_n: int = LOG_N):
         else:
             check(results[name] is True, f"{name}: a decrypted coefficient is not exact")
     mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
-    for r in rows:
-        counts = launches if r["name"].startswith("ntt_mxu") else ntt_pallas.LAUNCHES
-        r["ring_launches"] = counts["inverse" if r["name"].endswith("inverse") else "forward"]
+    set_row_launches(rows, "ring_launches", counts)
     for r in mxu_rows:
         check(r["ring_launches"] > 0, f"{r['name']} not launched in phase 9a")
     launch = ntt_mxu.four_step_cuda
@@ -2294,9 +2493,9 @@ def phase_sparse_bootstrap(rows, log_n: int | None = None):
     params, p_ci = res["params"], res["ci"]
     engines = {name: ring.ntt_engine for name, ring in
                (("Q", params.ring_q), ("P", params.ring_p), ("CI Q", p_ci.ring_q))}
-    for name, eng in engines.items():
-        want = "ci-plain" if name.startswith("CI") else "mxu64-plain"
-        check(eng == want, f"phase 9b ring {name} on {eng}, not {want}")
+    for name, ring in (("Q", params.ring_q), ("P", params.ring_p)):
+        mxu64_engine(ring)
+    check(engines["CI Q"] == "ci-plain", f"phase 9b ring CI Q on {engines['CI Q']}")
     marks = {}
 
     def mark(name):
@@ -2311,8 +2510,7 @@ def phase_sparse_bootstrap(rows, log_n: int | None = None):
     mark("ci")
     launches = launch_counts()
     set_row_launches(rows, "sparse_btp_launches", launches)
-    check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"a kernel launched on the mxu64-plain bootstraps: {launches}")
+    check_launches(launches, "phase 9b", engines["Q"] == "u64-cuda")
     bits = {"sparse": res["sparse_bits"](outs), "ci": res["ci_bits"](ci_outs)}
     for name, per_ct in bits.items():
         for worst, mean in per_ct:
@@ -2607,7 +2805,7 @@ def wire_flow(device, log_n: int = LOG_N):
 
 def phase_wire(rows, log_n: int = LOG_N):
     import torch
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    from lattigo_tpu_torch.ring import ntt_mxu
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2628,14 +2826,13 @@ def phase_wire(rows, log_n: int = LOG_N):
         check(eng == "mxu-cuda", f"phase 10 ring {k} on {eng}, not mxu-cuda")
 
     # the main path once, the four-step calls recorded
-    ntt_pallas.reset_launches()
+    reset_launch_counts()
     outs, calls, launches = record_calls(ntt_mxu, "four_step_cuda", res["run"])
-    check(all(v == 0 for v in ntt_pallas.LAUNCHES.values()),
-          f"the u32 kernel launched in phase 10: {ntt_pallas.LAUNCHES}")
+    counts = launch_counts()
+    check(not any(v for key in ("ntt_pallas", "ntt_u64") for v in counts[key].values()),
+          f"the u32 or u64 kernel launched in phase 10: {counts}")
     mxu_rows = [r for r in rows if r["name"].startswith("ntt_mxu")]
-    for r in rows:
-        counts = launches if r["name"].startswith("ntt_mxu") else ntt_pallas.LAUNCHES
-        r["phase10_launches"] = counts["inverse" if r["name"].endswith("inverse") else "forward"]
+    set_row_launches(rows, "phase10_launches", counts)
     for r in mxu_rows:
         check(r["phase10_launches"] > 0, f"{r['name']} not launched in phase 10")
     launch = ntt_mxu.four_step_cuda
@@ -2757,12 +2954,13 @@ def phase_digit_matmul(rows):
         psis = [SubRing(n, q).psi for q in moduli]
         ntt_u64_mxu._prime_tables.cache_clear()
         t0 = time.perf_counter()
-        ntt_u64_mxu.NTTMxu64(n, moduli, psis, "cuda")
+        eng = ntt_u64_mxu.NTTMxu64(n, moduli, psis, "cuda")
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        ring = Ring(n, moduli, device="cuda")           # its tables from the cache
-        check(ring.ntt_engine == "mxu64-plain", f"11a {name} ring on {ring.ntt_engine}")
-        eng = ring._kernel
+        # the ring's own engine (the u64 kernel at logN 15-16) is held
+        # against radix-2 beside the four-step engine
+        ring = Ring(n, moduli, device="cuda")
+        mxu64_engine(ring)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         q = ring.q
         # the top of the engine's input contract: uniform in [0, 2q), the
@@ -2787,7 +2985,7 @@ def phase_digit_matmul(rows):
             check(torch.equal(got_l % q, want_l % q) and bool((got_l < 2 * q).all()),
                   f"11a {name}: lazy mxu64 != radix-2 mod q, inverse={inverse}")
             for route in ("int8", "f64"):
-                check(torch.equal(eng._apply(x, slice(0, L), inverse, False, route), got),
+                check(torch.equal(eng._apply(x, slice(0, L), inverse, False, route), want),
                       f"11a {name}: route {route} differs, inverse={inverse}")
             one = x[..., 1:2, :].contiguous()
             single = (ring.intt_single if inverse else ring.ntt_single)(1, one)
@@ -2807,14 +3005,14 @@ def phase_digit_matmul(rows):
                 ms.setdefault(f"{route} {d}", []).append(cuda_ms(
                     lambda: eng._apply(x, slice(0, L), inverse, False, route), reps))
         ops = {}
-        for label, fn in (("mxu64", lambda: ring.ntt(x)),
+        for label, fn in (("mxu64", lambda: eng.ntt(x)),
                           ("radix-2", lambda: radix2(x, False, False)),
                           ("f64 route", lambda: eng._apply(x, slice(0, L), False, False, "f64"))):
             with OpCounter() as counter:
                 fn()
             ops[label] = counter.total
         work = {}
-        for label, fn in (("mxu64", lambda: ring.ntt(x)), ("radix-2", lambda: radix2(x, False, False))):
+        for label, fn in (("mxu64", lambda: eng.ntt(x)), ("radix-2", lambda: radix2(x, False, False))):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -3043,7 +3241,9 @@ def phase_scale_out(rows):
             d = "inverse" if r["name"].endswith("inverse") else "forward"
             r["scale_out_launches"] = sum(x["launches"][d] for x in step + hz)
         else:
-            r["scale_out_launches"] = 0
+            # the ranks count the four-step kernel's launches alone (12a's
+            # one-process ring runs the u64 kernel there, uncounted)
+            r["scale_out_launches"] = 0 if r["name"].startswith("ntt_u32") else None
     print(f"phase 12b dp x limb BGV step: bgv_tpu_params({LOG_N}, {LOG_QP}), "
           f"mesh dp 2 x limb 2, batch {BATCH} at {ca.level + 1} Q limbs (a rank "
           f"{step[0]['local_in']} in, {[r['local_out'] for r in step]} out), "
@@ -3092,7 +3292,6 @@ def phase_scale_out(rows):
 def phase_examples(rows):
     import importlib
     import torch
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
     from lattigo_tpu_torch.ring import ring as ring_mod
 
     gc.collect()
@@ -3105,8 +3304,7 @@ def phase_examples(rows):
         init(self, *args, **kwargs)
         engines.add(self.ntt_engine)
 
-    totals = {"ntt_mxu": {"forward": 0, "inverse": 0},
-              "ntt_pallas": {"forward": 0, "inverse": 0}}
+    totals = {key: {"forward": 0, "inverse": 0} for key, _, _ in KERNELS}
     held, err, lines = 0, 0, []
     ring_mod.Ring.__init__ = recording_init
     try:
@@ -3115,24 +3313,16 @@ def phase_examples(rows):
             mod = importlib.import_module(f"lattigo_tpu_torch.examples.{name}")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            (_, calls, u32), mxu_calls, mxu = record_calls(
-                ntt_mxu, "four_step_cuda", lambda: record_calls(
-                    ntt_pallas, "u32_cuda", lambda: mod.main(device="cuda", **kwargs)))
+            _, calls, counts = record_kernels(lambda: mod.main(device="cuda", **kwargs))
             ms = (time.perf_counter() - t0) * 1e3
-            for k in ("forward", "inverse"):
-                totals["ntt_pallas"][k] += u32[k]
-                totals["ntt_mxu"][k] += mxu[k]
-            for module, fam, recorded in ((ntt_pallas, "u32", calls),
-                                          (ntt_mxu, "four_step", mxu_calls)):
-                for eng, x, lo, inverse, lazy in recorded.values():
-                    got = getattr(module, f"{fam}_cuda")(eng, x, lo, inverse, lazy)
-                    want = getattr(module, f"{fam}_plain")(eng, x, lo, inverse, lazy)
-                    err = max(err, int((got - want).abs().max()))
-                    check(torch.equal(got, want), f"phase 13 {name}: {fam} kernel != "
-                          f"plain at {tuple(x.shape)} inverse={inverse}")
-                held += len(recorded)
-            lines.append(f"{name} {ms:.1f} ms {sorted(engines)} four-step {mxu} "
-                         f"u32 {u32}")
+            for key, d in counts.items():
+                for k, v in d.items():
+                    totals[key][k] += v
+            h, e = hold_recorded(rows, calls, f"phase 13 {name}")
+            held, err = held + h, max(err, e)
+            lines.append(f"{name} {ms:.1f} ms {sorted(engines)} four-step "
+                         f"{counts['ntt_mxu']} u32 {counts['ntt_pallas']} u64 "
+                         f"{counts['ntt_u64']}")
     finally:
         ring_mod.Ring.__init__ = init
     set_row_launches(rows, "examples_launches", totals)
@@ -3172,32 +3362,14 @@ BTP16_MIN_BITS = {"sign stage": (16.77, 22.77), "inverse full domain": (7.81, 8.
 def phase_gate(rows):
     import torch
     from lattigo_tpu_torch import gate
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
 
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    (res, mxu_calls, mxu), u32_calls, u32 = record_calls(
-        ntt_pallas, "u32_cuda", lambda: record_calls(
-            ntt_mxu, "four_step_cuda", lambda: gate.run("cuda")))
+    res, calls, launches = record_kernels(lambda: gate.run("cuda"))
     check(res["gate"] == "PASS", f"phase 14: gate {res['gate']}")
-    held, err = 0, 0
-    for module, fam, recorded in ((ntt_pallas, "u32", u32_calls),
-                                  (ntt_mxu, "four_step", mxu_calls)):
-        for eng, x, lo, inverse, lazy in recorded.values():
-            got = getattr(module, f"{fam}_cuda")(eng, x, lo, inverse, lazy)
-            want = getattr(module, f"{fam}_plain")(eng, x, lo, inverse, lazy)
-            e = int((got - want).abs().max())
-            err = max(err, e)
-            name = ("ntt_mxu" if fam == "four_step" else "ntt_u32") + (
-                "_inverse" if inverse else "_forward")
-            for r in rows:
-                if r["name"] == name:
-                    r["max_abs_err"] = max(r["max_abs_err"], e)
-            check(torch.equal(got, want), f"phase 14: {fam} kernel != plain at "
-                  f"{tuple(x.shape)} inverse={inverse} lazy={lazy}")
-        held += len(recorded)
-    set_row_launches(rows, "gate_launches", {"ntt_mxu": mxu, "ntt_pallas": u32})
+    held, err = hold_recorded(rows, calls, "phase 14")
+    set_row_launches(rows, "gate_launches", launches)
     for r in rows:
         check(r["gate_launches"] > 0, f"phase 14: {r['name']} not launched by the gate")
     g = res["gates"]
@@ -3212,7 +3384,8 @@ def phase_gate(rows):
           f"{g['gate_preset']['worst_bits']:.2f} / {g['gate_preset']['mean_bits']:.2f} bits "
           f"(floor {g['gate_preset']['floor']}); seconds " + ", ".join(
               f"{k} {v['s']:.1f}" for k, v in g.items())
-          + f"; launches four-step {mxu}, u32 {u32}; {held} distinct kernel calls held "
+          + f"; launches four-step {launches['ntt_mxu']}, u32 {launches['ntt_pallas']}, "
+          f"u64 {launches['ntt_u64']}; {held} distinct kernel calls held "
           f"against the plain version (max |err| {err}); the phase "
           f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -3230,9 +3403,10 @@ def phase_bootstrap_driver(rows):
     torch.cuda.synchronize()
     launches = launch_counts()
     set_row_launches(rows, "driver_launches", launches)
-    check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"phase 15: a kernel launched on the mxu64-plain bootstrap: {launches}")
-    check(res["engine"] == "mxu64-plain", f"phase 15: ring Q on {res['engine']}")
+    # the preset is at logN 15: its Q ring on the u64 kernel
+    check(res["log_n"] == 15 and res["engine"] == "u64-cuda",
+          f"phase 15: ring Q at logN {res['log_n']} on {res['engine']}")
+    check_launches(launches, "phase 15", True)
     check(res["precision_bits"] >= BTP_MIN_BITS[0]
           and res["precision_avg_bits"] >= BTP_MIN_BITS[1],
           f"phase 15: precision {res['precision_bits']:.2f} / "
@@ -3339,9 +3513,8 @@ def phase_circuits_btp(rows, log_n: int | None = None):
     params = res["params"]
     # three of P's five 61-bit primes lie above 2^61, off the u64 four-step
     # engine's range (the reference's rule too): radix-2
-    engines = {"Q": params.ring_q.ntt_engine, "P": params.ring_p.ntt_engine}
-    check(engines == {"Q": "mxu64-plain", "P": "radix2-plain"},
-          f"phase 16 rings on {engines}")
+    engines = {"Q": mxu64_engine(params.ring_q), "P": params.ring_p.ntt_engine}
+    check(engines["P"] == "radix2-plain", f"phase 16 rings on {engines}")
     setup_mb = torch.cuda.max_memory_allocated() / 2**20
     reset_launch_counts()
     results, first_boot, first_in = {}, [], []
@@ -3376,8 +3549,7 @@ def phase_circuits_btp(rows, log_n: int | None = None):
         results[name] = (ms, boot_ms, worst, mean, out.level)
     launches = launch_counts()
     set_row_launches(rows, "btp16_launches", launches)
-    check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"phase 16: a kernel launched on the mxu64-plain rings: {launches}")
+    check_launches(launches, "phase 16", engines["Q"] == "u64-cuda")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     # the sign stage's bootstrap alone: its output against the encrypted x,
     # and its slots that lie 4 bits or more under its mean
@@ -3750,8 +3922,8 @@ def phase_stage_audit(rows, btp16):
         del a
     launches = launch_counts()
     set_row_launches(rows, "audit_launches", launches)
-    check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"phase 18a: a kernel launched on the mxu64-plain rings: {launches}")
+    check_launches(launches, "phase 18a",
+                   mxu64_engine(btp16["params"].ring_q) == "u64-cuda")
     print(f"phase 18a: kernel launches {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({held_mb:.1f} held at the "
           f"start); the phase {time.perf_counter() - t_phase:.1f} s")
@@ -3816,8 +3988,7 @@ def phase_scaling(rows):
             for k, v in d.items():
                 launches[fam][k] += v
     set_row_launches(rows, "scaling_launches", launches)
-    check(all(v == 0 for d in launches.values() for v in d.values()),
-          f"phase 18c: a kernel launched on the mxu64-plain rings: {launches}")
+    check_launches(launches, "phase 18c", False)
     check(res["engine"] == "mxu64-plain" and res["rank_engines"] == ["mxu64-plain"],
           f"phase 18c: rings on {res['engine']} here, {res['rank_engines']} on the ranks")
     check(res["collectives_on_dp_axis"] == 0 and res["bit_exact"],
@@ -3850,6 +4021,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_u32_kernels(rows)
+    phase_u64_kernels(rows)
     phase_server(rows)
     phase_blindrot(rows)
     phase_ckks(rows)

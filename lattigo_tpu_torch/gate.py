@@ -14,9 +14,11 @@ gate runs what only means something there:
    the four-step kernel (``csrc/ntt_mxu.cu``) and the u32 kernel
    (``csrc/ntt_pallas.cu``), forward and inverse, lazy and not, each also
    bit-equal to its plain torch version on the card; the u64 four-step
-   engine (``mxu64-plain``) on 50-bit, mixed 25 / 50 / 61-bit and (full)
-   60-bit chains; and the ModUp digit-matmul contraction against the raw
-   multiply-accumulate. On the CPU every engine is its plain version.
+   engine on 50-bit, mixed 25 / 50 / 61-bit and (full) 60-bit chains
+   (``mxu64-plain``; on the card at logN 15-16 the u64 kernel
+   ``csrc/ntt_u64.cu``, also against its plain version); and the ModUp
+   digit-matmul contraction against the raw multiply-accumulate. On the
+   CPU every engine is its plain version.
 3. :func:`gate_bootstrap`: one bootstrap at logN 8 with ≥ 8 bits.
 4. :func:`gate_preset`: the published ``N15QP768_H192_H32`` recipe at
    logN 10, worst ≥ 15.0 / mean ≥ 17.0 bits (``--full``: at logN 15, worst
@@ -148,8 +150,10 @@ def _radix2(ring, x, inverse: bool, lazy: bool):
 
 def _plain_twin(ring):
     """The plain torch version of the ring's kernel, or None."""
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas, ntt_u64
 
+    if ring._u64 is not None:
+        return lambda x, inverse, lazy: ntt_u64.u64_plain(ring._u64, x, 0, inverse, lazy)
     if ring._mxu is not None:
         return lambda x, inverse, lazy: ntt_mxu.four_step_plain(ring._mxu, x, 0, inverse, lazy)
     if ring._u32 is not None:
@@ -295,7 +299,7 @@ def run(device=None, full: bool = False) -> dict:
     """Run the four gates in order on ``device`` (CUDA unless named); the
     first failure raises. Returns each gate's result with its seconds and
     the kernels' launches over the run."""
-    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+    from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas, ntt_u64
 
     device = resolve_device(device)
     gates = {
@@ -305,8 +309,8 @@ def run(device=None, full: bool = False) -> dict:
         "gate_preset": (lambda: gate_preset(device, None, 12.0, 14.5)) if full
         else (lambda: gate_preset(device)),
     }
-    ntt_mxu.reset_launches()
-    ntt_pallas.reset_launches()
+    for kernel in (ntt_mxu, ntt_pallas, ntt_u64):
+        kernel.reset_launches()
     results = {}
     for name in GATES:
         t0 = time.perf_counter()
@@ -316,7 +320,8 @@ def run(device=None, full: bool = False) -> dict:
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     return dict(gate="PASS", device=dict(platform=device.type, kind=kind), full=full,
                 gates=results, launches=dict(ntt_mxu=dict(ntt_mxu.LAUNCHES),
-                                             ntt_pallas=dict(ntt_pallas.LAUNCHES)))
+                                             ntt_pallas=dict(ntt_pallas.LAUNCHES),
+                                             ntt_u64=dict(ntt_u64.LAUNCHES)))
 
 
 def main(argv=None) -> int:

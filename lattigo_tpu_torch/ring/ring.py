@@ -17,7 +17,9 @@ JAX package's ``Ring._build_pallas``):
 * ``mxu64``: a STANDARD ring with N ≥ 4096 and every q < 2^61 that no
   kernel took uses the u64 four-step digit-matmul engine
   (:mod:`.ntt_u64_mxu`): library matmuls and torch elementwise ops, no
-  kernel of this repository, on every device;
+  kernel of this repository; on the card at N = 2^15 and 2^16 such a ring
+  runs the u64 kernel (:mod:`.ntt_u64`, 64-bit Montgomery butterflies)
+  instead, and builds no digit-matmul tables;
 * ``radix2``: every other chain uses the plain radix-2 engine (:mod:`.ntt`).
 
 A CONJUGATE_INVARIANT ring (``ring_type``) always takes the plain CI
@@ -25,8 +27,9 @@ transform (:mod:`.ntt_ci`, 4N-th roots), which has no kernel in either
 package; ``ring.ntt_engine`` names it "ci-plain".
 
 Each kernel engine runs its CUDA kernel on the card and its plain version
-on the CPU; ``ring.ntt_engine`` names the choice. A kernel that fails to
-build or launch raises; nothing falls back to another engine.
+on the CPU; ``ring.ntt_engine`` names the choice (:func:`engine_name`). A
+kernel that fails to build or launch raises; nothing falls back to another
+engine.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from lattigo_tpu_torch.device import resolve_device
 from lattigo_tpu_torch.ring import (modops, ntt as ntt_mod, ntt_ci, ntt_mxu, ntt_pallas,
-                                    ntt_u64_mxu)
+                                    ntt_u64, ntt_u64_mxu)
 from lattigo_tpu_torch.ring.modops import gen_bred_constant, gen_mred_constant
 from lattigo_tpu_torch.trace import span
 from lattigo_tpu_torch.utils.primes import primitive_nth_root
@@ -110,6 +113,27 @@ def select_engine(n: int, moduli: list[int], ring_type: str = STANDARD) -> str:
     return "radix2"
 
 
+def engine_name(n: int, moduli: list[int], device_type: str,
+                ring_type: str = STANDARD) -> str:
+    """The name :attr:`Ring.ntt_engine` reports for a ring of these
+    parameters on a device of this type: "mxu-cuda" / "u32-cuda" (the
+    four-step or u32 CUDA kernel), "mxu-plain" / "u32-plain" (its plain
+    torch version, on the CPU), "u64-cuda" (an ``mxu64`` ring on the card
+    at N = 2^15 or 2^16: the u64 CUDA kernel), "mxu64-plain" (every other
+    ``mxu64`` ring: the u64 four-step engine, library matmuls),
+    "radix2-plain" (the stage-by-stage engine) or "ci-plain" (the
+    conjugate-invariant ring's transform)."""
+    if ring_type != STANDARD:
+        return "ci-plain"
+    engine = select_engine(n, moduli, ring_type)
+    if engine == "radix2":
+        return "radix2-plain"
+    if engine == "mxu64":
+        return ("u64-cuda" if device_type == "cuda" and n in ntt_u64.SIZES
+                else "mxu64-plain")
+    return engine + ("-cuda" if device_type == "cuda" else "-plain")
+
+
 class Ring:
     """RNS ring Z_Q[X]/(X^N+1), Q = ∏ moduli, with tables on ``device``.
 
@@ -172,33 +196,27 @@ class Ring:
             self.ci_ninv = u64_tensor([t[4] for t in tabs], dev, (L, 1))
 
         self._engine = select_engine(n, self.moduli, ring_type)
+        self._engine_name = engine_name(n, self.moduli, dev.type, ring_type)
         psis = [s.psi for s in self.subrings]
         self._mxu = (ntt_mxu.NTTMxu(n, self.moduli, psis, dev)
                      if self._engine == "mxu" else None)
         self._u32 = (ntt_pallas.NTTPallas(n, self.moduli, psis, dev)
                      if self._engine == "u32" else None)
         self._mxu64 = (ntt_u64_mxu.NTTMxu64(n, self.moduli, psis, dev)
-                       if self._engine == "mxu64" else None)
+                       if self._engine_name == "mxu64-plain" else None)
+        self._u64 = (ntt_u64.NTTU64(n, self.q, self.qinv, self.ninv, self.roots,
+                                    self.iroots)
+                     if self._engine_name == "u64-cuda" else None)
         #: the engine of this ring with ntt / intt / *_single entry points
-        #: (four-step, u32 or u64 four-step), or None for radix-2
-        self._kernel = self._mxu or self._u32 or self._mxu64
+        #: (four-step, u32, u64 four-step or u64 kernel), or None for radix-2
+        self._kernel = self._mxu or self._u32 or self._mxu64 or self._u64
 
     # -- basic properties ---------------------------------------------------
 
     @property
     def ntt_engine(self) -> str:
-        """The NTT engine: "mxu-cuda" / "u32-cuda" (the four-step or u32
-        CUDA kernel), "mxu-plain" / "u32-plain" (its plain torch version, on
-        the CPU), "mxu64-plain" (the u64 four-step engine, library matmuls
-        on every device), "radix2-plain" (the stage-by-stage engine) or
-        "ci-plain" (the conjugate-invariant ring's transform)."""
-        if self.ci:
-            return "ci-plain"
-        if self._kernel is None:
-            return "radix2-plain"
-        if self._mxu64 is not None:
-            return "mxu64-plain"
-        return self._engine + ("-cuda" if self.device.type == "cuda" else "-plain")
+        """The NTT engine (:func:`engine_name`)."""
+        return self._engine_name
 
     @property
     def max_level(self) -> int:

@@ -37,7 +37,7 @@ def test_port_imports_no_jax():
               "comparison", "inverse"):
         assert "lattigo_tpu_torch.circuits." + m in mods
     for m in ("ring.ntt_ci", "rlwe.ring_packing", "schemes.ckks.bridge",
-              "ring.ntt_u64_mxu", "native", "trace"):
+              "ring.ntt_u64_mxu", "ring.ntt_u64", "native", "trace"):
         assert "lattigo_tpu_torch." + m in mods
     assert "lattigo_tpu_torch.utils.cosine" in mods
     assert "lattigo_tpu_torch.utils.minimax" in mods
@@ -60,7 +60,7 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'bench_ntt_u32', 'bench_ntt_mxu',\n"
-        "           'bench_ntt_mxu_phases',\n"
+        "           'bench_ntt_mxu_phases', 'bench_ntt_u64',\n"
         "           'gpu_gate', 'bench_bootstrap_torch', 'diag_bootstrap_stages_torch',\n"
         "           'validate_presets_torch', 'bench_scaling_torch']:\n"
         "    importlib.import_module(m)\n"

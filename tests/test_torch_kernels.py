@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from lattigo_tpu_torch.presets import bgv_tpu_params
-from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas
+from lattigo_tpu_torch.ring import ntt_mxu, ntt_pallas, ntt_u64, ntt_u64_mxu
 from lattigo_tpu_torch.ring.ring import Ring
 from lattigo_tpu_torch.rlwe.params import gen_moduli
 from lattigo_tpu_torch.utils.primes import NTTFriendlyPrimesGenerator
@@ -297,6 +297,106 @@ def test_u32_kernel_rejects_bad_input(cuda):
     big = NTTFriendlyPrimesGenerator(31, 2048).next_alternating_prime()
     with pytest.raises(ValueError):                 # q >= 2^30
         ntt_pallas.NTTPallas(1024, [big], [psi], cuda)
+
+
+# the u64 kernel's chains: PN16QP1761's widths, and a mixed chain whose
+# 25-bit limb still takes the 64-bit Montgomery route
+_U64_CHAINS = {"45/55/56": (45, 55, 56), "25/50/61": (25, 50, 61)}
+_U64_RINGS = {}
+
+
+def _u64_ring(logn, chain, cuda):
+    key = (logn, chain)
+    if key not in _U64_RINGS:
+        n = 1 << logn
+        bits = _U64_CHAINS[chain]
+        gens = {b: NTTFriendlyPrimesGenerator(b, 2 * n) for b in set(bits)}
+        _U64_RINGS[key] = Ring(n, [gens[b].next_downstream_prime() for b in bits],
+                               device=cuda)
+    return _U64_RINGS[key]
+
+
+def _u64_inputs(ring, batch, seed):
+    """Uniform in [0, 2q), every 7th coefficient at 2q - 1 (the top of the
+    contract)."""
+    q2 = 2 * ring.q
+    g = torch.Generator(device=ring.device).manual_seed(seed)
+    x = torch.randint(0, 1 << 62, batch + (q2.shape[0], ring.n), generator=g,
+                      device=ring.device) % q2
+    x[..., ::7] = (q2 - 1).expand_as(x[..., ::7])
+    return x
+
+
+@pytest.mark.parametrize("logn", [15, 16])
+@pytest.mark.parametrize("chain", list(_U64_CHAINS))
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_u64_kernel_matches_plain_and_mxu64(cuda, logn, chain, inverse, lazy):
+    """Two launches a call; bit-equal to the plain version; non-lazy
+    bit-equal to the u64 four-step engine on the card, lazy equal mod q and
+    in [0, 2q)."""
+    ring = _u64_ring(logn, chain, cuda)
+    assert ring.ntt_engine == "u64-cuda" and ring._mxu64 is None
+    eng = ring._u64
+    x = _u64_inputs(ring, (3,), logn + 10 * inverse)
+    key = "inverse" if inverse else "forward"
+    before = dict(ntt_u64.LAUNCHES)
+    got = ntt_u64.u64_cuda(eng, x, 0, inverse, lazy)
+    assert ntt_u64.LAUNCHES[key] == before[key] + ntt_u64.LAUNCHES_PER_CALL == before[key] + 2
+    assert torch.equal(got, ntt_u64.u64_plain(eng, x, 0, inverse, lazy))
+    q = ring.q
+    assert bool(((got >= 0) & (got < (2 if lazy else 1) * q)).all())
+    mxu64 = ntt_u64_mxu.NTTMxu64(ring.n, ring.moduli, [s.psi for s in ring.subrings], cuda)
+    want = (mxu64.intt if inverse else mxu64.ntt)(x, lazy=lazy)
+    if lazy:
+        assert torch.equal(got % q, want % q)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("logn", [15, 16])
+@pytest.mark.parametrize("chain", list(_U64_CHAINS))
+def test_u64_kernel_roundtrip_and_offset(cuda, logn, chain):
+    """NTT then INTT is the identity; ``*_single`` at limbs 1 and 2 (lazy and
+    not) equals the whole call's limb and the plain version at that offset;
+    row counts 1 to 2 x 3 limbs."""
+    ring = _u64_ring(logn, chain, cuda)
+    eng = ring._u64
+    x = _u64_inputs(ring, (2,), 500 + logn)
+    for lazy in (False, True):
+        y = ring.ntt(x, lazy=lazy)
+        assert torch.equal(ring.intt(y), x % ring.q)
+    y = ring.ntt(x)
+    for i in (1, 2):
+        xi = x[:, i:i + 1].contiguous()
+        for lazy in (False, True):
+            yi = ring.ntt_single(i, xi, lazy=lazy)
+            assert torch.equal(yi, ntt_u64.u64_plain(eng, xi, i, False, lazy))
+            xb = ring.intt_single(i, yi, lazy=lazy)
+            assert torch.equal(xb, ntt_u64.u64_plain(eng, yi, i, True, lazy))
+        assert torch.equal(ring.ntt_single(i, xi), y[:, i:i + 1])
+        one = xi[:1]
+        assert torch.equal(ring.intt_single(i, ring.ntt_single(i, one)), one % ring.q[i])
+    two = x[:, 1:].contiguous()                      # limbs 1-2 from offset 1
+    assert torch.equal(ntt_u64.u64_cuda(eng, two, 1, False, False), y[:, 1:])
+
+
+def test_u64_kernel_rejects_bad_input(cuda):
+    ring = _u64_ring(15, "45/55/56", cuda)
+    eng = ring._u64
+    x = _u64_inputs(ring, (2,), 1)
+    with pytest.raises(TypeError):
+        ntt_u64.u64_cuda(eng, x.to(torch.int32), 0, False, False)
+    with pytest.raises(ValueError):                 # not contiguous
+        ntt_u64.u64_cuda(eng, x.transpose(0, 1), 0, False, False)
+    with pytest.raises(ValueError):                 # N
+        ntt_u64.u64_cuda(eng, x[..., : ring.n // 2].contiguous(), 0, False, False)
+    with pytest.raises(ValueError):                 # limbs past the table
+        ntt_u64.u64_cuda(eng, x, 1, False, False)
+    with pytest.raises(ValueError):                 # device
+        ntt_u64.u64_cuda(eng, x.cpu(), 0, False, False)
+    with pytest.raises(ValueError):                 # N the kernel has not
+        ntt_u64.NTTU64(1 << 14, ring.q, ring.qinv, ring.ninv, ring.roots, ring.iroots)
 
 
 def test_four_step_kernel_on_the_ckks_step(cuda, monkeypatch):
