@@ -1,5 +1,5 @@
 """What the request kinds share: the seed's streams, the secret key's
-coefficients, and the program's CKKS parameters built from a
+coefficients, and the program's CKKS and BGV parameters built from a
 configuration."""
 
 from __future__ import annotations
@@ -48,17 +48,34 @@ def check_moduli(params, cfg: dict) -> None:
         raise RuntimeError("the program's moduli differ from the configuration's")
 
 
-def ckks_params(cfg: dict, device):
-    """The program's CKKS parameters at the configuration's primes."""
+def _secret_distribution(cfg: dict):
     from lattigo_tpu_torch.ring.sampling import Ternary
-    from lattigo_tpu_torch.schemes import ckks
 
     sec = cfg["secret"]
-    xs = (Ternary(hamming_weight=sec["hamming_weight"])
-          if sec.get("hamming_weight") is not None else Ternary(p=sec["p_zero"]))
+    return (Ternary(hamming_weight=sec["hamming_weight"])
+            if sec.get("hamming_weight") is not None else Ternary(p=sec["p_zero"]))
+
+
+def ckks_params(cfg: dict, device):
+    """The program's CKKS parameters at the configuration's primes."""
+    from lattigo_tpu_torch.schemes import ckks
+
     lit = ckks.ParametersLiteral(log_n=cfg["log_n"], q=tuple(cfg["q"]), p=tuple(cfg["p"]),
-                                 xs=xs, log_default_scale=cfg["log_default_scale"])
+                                 xs=_secret_distribution(cfg),
+                                 log_default_scale=cfg["log_default_scale"])
     params = ckks.Parameters(lit, device=device)
+    check_moduli(params, cfg)
+    return params
+
+
+def bgv_params(cfg: dict, device):
+    """The program's BGV parameters at the configuration's primes and
+    plaintext modulus."""
+    from lattigo_tpu_torch.schemes import bgv
+
+    lit = bgv.ParametersLiteral(log_n=cfg["log_n"], q=tuple(cfg["q"]), p=tuple(cfg["p"]),
+                                xs=_secret_distribution(cfg), t=cfg["t"])
+    params = bgv.Parameters(lit, device=device)
     check_moduli(params, cfg)
     return params
 

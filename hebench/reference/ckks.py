@@ -8,6 +8,7 @@ the residues of each ciphertext, its NTT and Montgomery flags and its scale.
 
 from __future__ import annotations
 
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -94,3 +95,22 @@ def judge(value: np.ndarray, is_ntt: bool, is_montgomery: bool, scale,
     m, bad = rns.crt_small(coeffs, sk.moduli[: level + 1], bits)
     got = decode(m, scale)
     return {"crt_mismatch": bad, "max_err": float(np.max(np.abs(got - want)))}
+
+
+def judge_sample(s: dict, sk: SecretKey, cfg: dict, limits: dict) -> dict:
+    """:func:`judge` of one sample as the request kinds hand it over."""
+    return judge(s["value"], s["is_ntt"], s["is_montgomery"], s["scale"], sk, s["want"])
+
+
+def checks(judged: list[dict], limits: dict) -> dict:
+    """The CKKS numbers compared, each {"value", "limit"}, over the judged
+    ciphertexts: residues no small integer explains, and the slots' worst
+    error (log2) against the answers."""
+    worst = 0.0
+    for r in judged:
+        worst = max(worst, r["max_err"])
+    err_log2 = math.log2(worst) if 0 < worst < math.inf else (-1024.0 if worst == 0 else 1024.0)
+    return {
+        "crt_mismatch": {"value": sum(r["crt_mismatch"] for r in judged), "limit": 0},
+        "max_err_log2": {"value": err_log2, "limit": limits["max_err_log2"]},
+    }

@@ -148,6 +148,19 @@ def lift_small(x: np.ndarray, moduli: list[int]) -> np.ndarray:
     return np.stack([np.mod(x, m) for m in moduli]).astype(np.uint64)
 
 
+def crt_centred(r: np.ndarray, moduli: list[int]) -> np.ndarray:
+    """The centred integers (Python ints, object array [N]) whose residues
+    mod each of ``moduli`` are the rows of r[L, N]."""
+    m = r[0].astype(object)
+    done = moduli[0]
+    for i in range(1, len(moduli)):
+        qi = moduli[i]
+        t = ((r[i].astype(object) - m) % qi) * pow(done, -1, qi) % qi
+        m = m + done * t
+        done *= qi
+    return np.where(m > done // 2, m - done, m)
+
+
 def crt_small(r: np.ndarray, moduli: list[int], bits: int) -> tuple[np.ndarray, int]:
     """The centred integer m[N] (as float64) that the first rows of r[L, N]
     determine, taking rows until their product passes 2^(bits+1), and the
@@ -159,14 +172,7 @@ def crt_small(r: np.ndarray, moduli: list[int], bits: int) -> tuple[np.ndarray, 
         k += 1
     if prod <= (1 << (bits + 1)):
         raise ValueError(f"the chain cannot hold a {bits}-bit value")
-    m = r[0].astype(object)
-    done = moduli[0]
-    for i in range(1, k):
-        qi = moduli[i]
-        t = ((r[i].astype(object) - m) % qi) * pow(done, -1, qi) % qi
-        m = m + done * t
-        done *= qi
-    m = np.where(m > done // 2, m - done, m)
+    m = crt_centred(r[:k], moduli[:k])
     if max(abs(int(m.max())), abs(int(m.min()))) < 1 << 62:
         m_rows = m.astype(np.int64)
     else:

@@ -26,7 +26,6 @@ import argparse
 import importlib
 import importlib.util
 import json
-import math
 import os
 import subprocess
 import sys
@@ -62,32 +61,30 @@ def forbidden_modules() -> list[str]:
     return sorted(tops & set(FORBIDDEN))
 
 
-def check_outputs(samples, sk_coeffs, moduli, limits: dict, failed: int) -> dict:
+def check_outputs(samples, sk_coeffs, cfg: dict, limits: dict, failed: int) -> dict:
     """The numbers compared, each {"value", "limit"}: requests that raised,
-    outputs of the wrong shape or level, residues no small integer
-    explains, the slots' worst error (log2) against the reference's
-    answers, and how many ciphertexts were decrypted."""
-    from hebench.reference import ckks as ref
+    outputs of the wrong shape or level, then the numbers of the reference
+    of the configuration's ``scheme`` (``hebench/reference/<scheme>.py``,
+    CKKS where none is named) over the rest, and how many ciphertexts were
+    decrypted."""
+    from hebench.reference import ckks
 
-    sk = ref.SecretKey(sk_coeffs, moduli)
+    ref = importlib.import_module(f"hebench.reference.{cfg.get('scheme', 'ckks')}")
+    sk = ckks.SecretKey(sk_coeffs, cfg["q"])
     n = len(sk_coeffs)
-    wrong = mismatch = checked = 0
-    worst = 0.0
+    wrong = checked = 0
+    judged = []
     for s in samples:
         v = s["value"]
         checked += 1
         if v.ndim != 3 or v.shape[0] != 2 or v.shape[-1] != n or v.shape[1] != s["level"] + 1:
             wrong += 1
             continue
-        r = ref.judge(v, s["is_ntt"], s["is_montgomery"], s["scale"], sk, s["want"])
-        mismatch += r["crt_mismatch"]
-        worst = max(worst, r["max_err"])
-    err_log2 = math.log2(worst) if 0 < worst < math.inf else (-1024.0 if worst == 0 else 1024.0)
+        judged.append(ref.judge_sample(s, sk, cfg, limits))
     return {
         "failed_requests": {"value": failed, "limit": 0},
         "wrong_shape": {"value": wrong, "limit": 0},
-        "crt_mismatch": {"value": mismatch, "limit": 0},
-        "max_err_log2": {"value": err_log2, "limit": limits["max_err_log2"]},
+        **ref.checks(judged, limits),
         "unchecked": {"value": int(checked < limits["min_checked"]), "limit": 0},
     }
 
@@ -174,7 +171,7 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, seed: int, seconds: float,
     samples = list(cell.samples())
     sk_coeffs = cell.sk_coeffs
     del cell, out
-    checks = check_outputs(samples, sk_coeffs, cfg["q"], limits, failed)
+    checks = check_outputs(samples, sk_coeffs, cfg, limits, failed)
     if first_error:
         print(f"hebench: a request raised: {first_error}", file=sys.stderr)
     print(f"hebench: set-up {t_warm - t_start:.3f} s, warm request "

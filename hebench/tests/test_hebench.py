@@ -21,6 +21,7 @@ import torch
 
 from hebench import run
 from hebench.control import float64_products
+from hebench.reference import bgv as bgv_ref
 from hebench.reference import ckks as ref
 from hebench.reference import rns
 
@@ -64,6 +65,8 @@ def small_cell(cell: str, log_n: int | None = None,
                                     tuple(cfg["log_q"]), tuple(log_p))
     if traffic["kind"] == "ckks_ptmul":
         traffic.update(batch=8, weights=4, profile_requests=2)
+    if traffic["kind"] == "bgv_mulrelin":
+        traffic.update(batch=4, pool=8, profile_requests=1)
     traffic["sample_ct"] = traffic.get("batch")
     return cfg, traffic, limits
 
@@ -76,7 +79,7 @@ def run_small(cell: str, seconds: float = 0.5, trace: bool = False, patch=None):
                             [{"name": n, "unit": "-"} for n in PER_LAYER])
 
 
-CELLS = ["ckks16.step", "ckks16.ptmul", "btp15.chain"]
+CELLS = ["ckks16.step", "ckks16.ptmul", "btp15.chain", "bgv14.square-b100"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -85,7 +88,11 @@ def test_cell_agrees_with_reference(cell):
     checks = res["checks"]
     assert res["correct"], checks
     assert checks["crt_mismatch"]["value"] == 0
-    assert checks["max_err_log2"]["value"] < checks["max_err_log2"]["limit"] - 4
+    if "slot_mismatch" in checks:
+        assert checks["slot_mismatch"]["value"] == 0
+        assert checks["noise_log2"]["value"] < checks["noise_log2"]["limit"] - 2
+    else:
+        assert checks["max_err_log2"]["value"] < checks["max_err_log2"]["limit"] - 4
 
 
 def test_result_schema():
@@ -105,25 +112,29 @@ def test_result_schema():
         assert m["value"] > 0
 
 
-def test_control_fails():
-    """The program with float64 residue products, on three seeds."""
-    cfg, traffic, limits = small_cell("ckks16.step")
+@pytest.mark.parametrize("cell", ["ckks16.step", "bgv14.square-b100"])
+def test_control_fails(cell):
+    """The program with float64 residue products, on three seeds: 45-56-bit
+    residues in the CKKS step, 34-44-bit ones in BGV's."""
+    cfg, traffic, limits = small_cell(cell)
     for seed in (SEED, SEED + 1, SEED + 2):
         with float64_products():
             res = run.run_cell(cfg, traffic, limits, seed, 0.2, False, "cpu", 0.0, [], [])
         assert not res["correct"]
         assert res["checks"]["crt_mismatch"]["value"] > 0
+        if "slot_mismatch" in res["checks"]:
+            assert res["checks"]["slot_mismatch"]["value"] > 0
 
 
 def _broken_request(kind_fault: str):
     """Plant one fault of the timed path in every request's output."""
-    from hebench.kinds import bootstrap_chain, ckks_ptmul, ckks_step
+    from hebench.kinds import bgv_mulrelin, bootstrap_chain, ckks_ptmul, ckks_step
 
     def unchanged(self, i, orig):
         if hasattr(self, "btp"):
             orig(self, i)
             return self.ct                 # the bootstrap hands back its input
-        if hasattr(self, "lt"):
+        if hasattr(self, "pool_ct"):
             ia, _ = self.idx[i % self.pool]
             return self.pool_ct.replace(value=self.pool_ct.value[ia])
         return self.ct
@@ -150,7 +161,7 @@ def _broken_request(kind_fault: str):
 
     @contextlib.contextmanager
     def patch():
-        kinds = (ckks_step.Cell, ckks_ptmul.Cell, bootstrap_chain.Cell)
+        kinds = (ckks_step.Cell, ckks_ptmul.Cell, bootstrap_chain.Cell, bgv_mulrelin.Cell)
         orig = {k: k.request for k in kinds}
         for k in kinds:
             k.request = (lambda o: lambda self, i: fault(self, i, o))(orig[k])
@@ -245,6 +256,33 @@ def test_decode_inverts_embedding():
     m = (2.0 / n) * np.real(np.sum(z[:, None] * zeta ** (-np.outer(e, k)), axis=0))
     got = ref.decode(np.round(m * 2**30).astype(np.int64), 2**30)
     assert np.max(np.abs(got - z)) < 1e-6
+
+
+def test_bgv_decode_inverts_evaluation():
+    """The reference's BGV slots of m are m's values at ζ^(5^j) (row 0)
+    and ζ^(-5^j) (row 1) mod T, ζ = T's primitive 2N-th root, taken here
+    by direct evaluation; and a scale s is divided out of m·s."""
+    n, t = 1 << 7, 65537
+    zeta = rns.psi(t, n)
+    rng = np.random.default_rng(5)
+    m = rng.integers(-(t // 2), t // 2 + 1, n)
+    e = [pow(5, j, 2 * n) for j in range(n // 2)]
+    points = [pow(zeta, x, t) for x in e] + [pow(zeta, 2 * n - x, t) for x in e]
+    want = [sum(int(c) * pow(z, k, t) for k, c in enumerate(m)) % t for z in points]
+    assert bgv_ref.decode(m.astype(object), 1, t).tolist() == want
+    s = 12345
+    lifted = (m.astype(object) * s) % t + t * rng.integers(-1000, 1000, n).astype(object)
+    assert bgv_ref.decode(lifted, s, t).tolist() == want
+    # the slot order is a permutation, and a product of slots is the
+    # product of the polynomials mod X^N + 1
+    assert sorted(bgv_ref.slot_order(n).tolist()) == list(range(n))
+    a, b = rng.integers(0, t, n), rng.integers(0, t, n)
+    prod = np.zeros(2 * n, dtype=object)
+    for k in range(n):
+        prod[k:k + n] += int(a[k]) * b.astype(object)
+    negacyclic = prod[:n] - prod[n:]
+    assert np.array_equal(bgv_ref.decode(negacyclic, 1, t),
+                          bgv_ref.want_mul(bgv_ref.decode(a, 1, t), bgv_ref.decode(b, 1, t), t))
 
 
 def test_run_imports_no_jax():
